@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of bayes_drt_tpu: batched Bayesian DRT inversion of
+EIS spectra on an NVIDIA H100.
+
+The main path is ``parallel.fit_spectra_batch`` (flat-chain SHMC on the
+single series-DRT posterior). Its two hot kernels are hand-written CUDA
+(``csrc/traj.cu``, ``csrc/quad.cu``), built with nvcc at first use.
+Entry points run on CUDA unless called with ``device="cpu"``. This package
+imports neither JAX nor the JAX package.
+"""
+
+from . import _numerics  # noqa: F401  (applies the fp32 matmul policy)
