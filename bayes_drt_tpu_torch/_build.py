@@ -27,6 +27,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("quad", "traj")
 
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# argument types of each library's C entry points, <symbol>_f32 and
+# <symbol>_f64 alike; every entry returns its cudaError_t as an int
+SIGNATURES = {
+    "quad": {"drt_quad": [_P] * 3 + [_I] * 3 + [_P] * 2},
+    "traj": {"traj": [_P] * 15 + [_I] * 3 + [_D] + [_P] * 4},
+}
+
 _loaded: dict = {}
 _lock = threading.Lock()
 
@@ -82,12 +90,18 @@ def build_all(names=KERNELS) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    its entry points' argument and return types set."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build_all((name,))
             lib = ctypes.CDLL(str(lib_path(name)))
+            for sym, argtypes in SIGNATURES[name].items():
+                for suffix in ("_f32", "_f64"):
+                    fn = getattr(lib, sym + suffix)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _loaded[name] = lib
         return lib
 

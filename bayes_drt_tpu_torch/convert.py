@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ._numerics import resolve_device, resolve_dtype
-from .infer.shmc_flat import FlatShared
+from .infer.shmc_flat import FlatShared, make_flat_shared
 from .models.posterior import DistConfig, PosteriorConfig, PosteriorData
 
 
@@ -55,9 +55,9 @@ def flat_shared_from_numpy(shared, dtype=None, device=None) -> FlatShared:
     """The port's FlatShared from the JAX package's (A, L, vecs, scal)."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
-    return FlatShared(*(_tensor(a, dt, dev).contiguous()
-                        for a in (shared.A, shared.L, shared.vecs,
-                                  shared.scal)))
+    return make_flat_shared(*(_tensor(a, dt, dev)
+                              for a in (shared.A, shared.L, shared.vecs,
+                                        shared.scal)))
 
 
 def flat_state_from_numpy(q, inv_mass, step_size, dtype=None, device=None):

@@ -56,10 +56,17 @@ def ess_jnp(draws):
 
 def _rank_normalize_jnp(x):
     """Rank-normal transform with ordinal ranks (double argsort), pooled
-    over chains and draws. (..., c, n, d) -> (..., c, n, d)."""
+    over chains and draws. (..., c, n, d) -> (..., c, n, d). The argsort
+    is stable, as jnp's is: ties (a repeated draw, or the two middle
+    draws' equal distances from an even count's median in the folded
+    Rhat) rank in draw order. The second argsort of the double argsort
+    inverts a permutation, done here as a scatter."""
     c, n, d = x.shape[-3:]
     flat = x.reshape(x.shape[:-3] + (c * n, d))
-    ranks = torch.argsort(torch.argsort(flat, dim=-2), dim=-2) + 1
+    order = torch.argsort(flat, dim=-2, stable=True)
+    pos = torch.arange(1, c * n + 1, device=x.device)[:, None]
+    ranks = torch.empty_like(order).scatter_(-2, order,
+                                             pos.expand_as(order))
     z = torch.special.ndtri((ranks.to(x.dtype) - 0.375) / (c * n + 0.25))
     return z.reshape(x.shape)
 

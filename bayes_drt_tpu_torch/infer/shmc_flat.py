@@ -79,13 +79,23 @@ def flat_spec_for(cfg, data) -> FlatSpec:
 
 
 class FlatShared(NamedTuple):
-    """Numeric inputs shared by every spectrum of the batch."""
+    """Numeric inputs shared by every spectrum of the batch, with the
+    transposed layouts the trajectory kernel reads (built once per fit by
+    ``make_flat_shared``)."""
     A: torch.Tensor     # (2n, K) stacked design matrix
     L: torch.Tensor     # (3, K, K) mode-scaled derivative matrices
     vecs: torch.Tensor  # (3, 2n): rinf_vec, induc_vec, lik_mask
     scal: torch.Tensor  # (8,): sigma_min, ups_alpha, ups_beta, induc_scale,
                         #       x_scale, ups_lognorm, 0, 0 (ups_lognorm is
                         #       the inv-gamma normalizer a*log(b)-lgamma(a))
+    AT: torch.Tensor    # (K, 2n) A transposed, contiguous
+    LT: torch.Tensor    # (3, K, K) each L transposed, contiguous
+
+
+def make_flat_shared(A, L, vecs, scal) -> FlatShared:
+    return FlatShared(A=A.contiguous(), L=L.contiguous(),
+                      vecs=vecs.contiguous(), scal=scal.contiguous(),
+                      AT=A.T.contiguous(), LT=L.transpose(1, 2).contiguous())
 
 
 def flat_shared_for(cfg, data, dtype) -> FlatShared:
@@ -102,9 +112,8 @@ def flat_shared_for(cfg, data, dtype) -> FlatShared:
     scal = torch.stack([data.sigma_min.to(dtype), ua, ub,
                         data.induc_scale.to(dtype),
                         data.x_scales[0].to(dtype), ups_lognorm, z, z])
-    return FlatShared(A=data.A[0].to(dtype).contiguous(),
-                      L=data.L[0].to(dtype).contiguous(),
-                      vecs=vecs.contiguous(), scal=scal.contiguous())
+    return make_flat_shared(data.A[0].to(dtype), data.L[0].to(dtype), vecs,
+                            scal)
 
 
 def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target):
@@ -346,7 +355,9 @@ def _launch_traj(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
               "targets": (targets, (R, n2)), "u_sel": (u_sel, (n_leap, R)),
               "A": (shared.A, (n2, spec.K)),
               "L": (shared.L, (3, spec.K, spec.K)),
-              "vecs": (shared.vecs, (3, n2)), "scal": (shared.scal, (8,))}
+              "vecs": (shared.vecs, (3, n2)), "scal": (shared.scal, (8,)),
+              "AT": (shared.AT, (spec.K, n2)),
+              "LT": (shared.LT, (3, spec.K, spec.K))}
     for name, (t, shape) in shapes.items():
         if t.device != dev or t.dtype != dt:
             raise ValueError(f"{name} must be {dt} on {dev}, got "
@@ -358,23 +369,19 @@ def _launch_traj(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
             raise ValueError(f"{name} must be contiguous")
     if D != spec.D or not 0 <= int(j) <= n_leap:
         raise ValueError("row width or split index out of range")
-    AT = shared.A.T.contiguous()
-    LT = shared.L.transpose(1, 2).contiguous()
     q_out = torch.empty_like(q)
     g_out = torch.empty_like(q)
     rs_out = torch.empty((4, R), dtype=dt, device=dev)
     lib = _build.load("traj")
     fn = lib.traj_f32 if dt == torch.float32 else lib.traj_f64
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
-                   + [ctypes.c_double] + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
     spec_arr = _spec_ints(spec)     # kept alive across the call
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), p0.data_ptr(), grad.data_ptr(),
                     logp.data_ptr(), eps.data_ptr(), m_inv_rows.data_ptr(),
                     targets.data_ptr(), u_sel.data_ptr(), shared.A.data_ptr(),
-                    AT.data_ptr(), shared.L.data_ptr(), LT.data_ptr(),
+                    shared.AT.data_ptr(), shared.L.data_ptr(),
+                    shared.LT.data_ptr(),
                     shared.vecs.data_ptr(), shared.scal.data_ptr(),
                     ctypes.addressof(spec_arr), R, n_leap, int(j),
                     float(max_e), q_out.data_ptr(), g_out.data_ptr(),

@@ -8,8 +8,6 @@ kernel for CUDA tensors; nothing falls back from one to the other.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
@@ -42,9 +40,6 @@ def _launch_kernel(s, y, phiw, part):
     out = torch.empty_like(s)
     lib = _build.load("quad")
     fn = lib.drt_quad_f32 if dt == torch.float32 else lib.drt_quad_f64
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(s.data_ptr(), y.data_ptr(), phiw.data_ptr(), s.numel(),

@@ -200,7 +200,9 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     flat-chain SHMC sampler, all B*chains chains in one trajectory launch
     per draw. Runs on CUDA unless ``device`` says otherwise, float32
     unless ``dtype`` says otherwise; random numbers come from a
-    torch.Generator seeded with ``random_seed``. ``timing`` records
+    torch.Generator seeded with ``random_seed``. Escalation is not ported,
+    so ``escalate`` must be False (None, its default, raises as True
+    does). ``timing`` records
     each trajectory launch with CUDA events (per-draw device times under
     ``diagnostics['traj_ms']``) and host-clock spans of setup, sampling and
     summary, each closed by a device synchronize
@@ -214,10 +216,13 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         raise NotImplementedError(
             f"sampler={sampler!r} is not ported yet; the port runs the "
             "flat-chain SHMC sampler (ROADMAP Queue 1 item 7 adds NUTS)")
-    if escalate:
+    # escalate=None means on for the fixed-trajectory SHMC sampler, as in
+    # the JAX package; only an explicit False runs without it
+    if escalate is None or escalate:
         raise NotImplementedError(
-            "escalation (the NUTS refit of under-mixed spectra) is not "
-            "ported yet (ROADMAP Queue 1 item 7); pass escalate=False")
+            "escalation (the NUTS refit of under-mixed spectra, on by "
+            "default for sampler='shmc') is not ported yet (ROADMAP Queue 1 "
+            "item 7); pass escalate=False")
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     sh_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()

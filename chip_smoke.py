@@ -198,9 +198,9 @@ def phase_traj_f32(card, state):
     either summation order; they are held to float64 references, and the
     kernel's largest error must not exceed twice the plain version's."""
     import torch
-    from bayes_drt_tpu_torch.infer.shmc_flat import (FlatShared,
-                                                     _traj_plain,
+    from bayes_drt_tpu_torch.infer.shmc_flat import (_traj_plain,
                                                      flat_value_and_grad,
+                                                     make_flat_shared,
                                                      traj_fused)
     args = traj_inputs(torch.float32, state)
     got = traj_fused(*args)
@@ -220,14 +220,16 @@ def phase_traj_f32(card, state):
     # point, sacc from the plain trajectory on the same inputs in float64
     # (the accept sum does not depend on the selection)
     spec, sh = args[0], args[3]
-    sh64 = FlatShared(*(t.double() for t in sh))
+    sh64 = make_flat_shared(sh.A.double(), sh.L.double(), sh.vecs.double(),
+                            sh.scal.double())
     tgt64 = args[10].double()
     a64 = tuple(a.double() if isinstance(a, torch.Tensor) else a
                 for a in args)
     sacc64 = _traj_plain(*a64[:3], sh64, *a64[4:])[4]
     errs = {}
     for who, out in (("kernel", got), ("plain", want)):
-        lp64, g64 = flat_value_and_grad(spec, *sh64, out[0].double(), tgt64)
+        lp64, g64 = flat_value_and_grad(spec, sh64.A, sh64.L, sh64.vecs,
+                                        sh64.scal, out[0].double(), tgt64)
         errs[who] = (float((out[1].double() - lp64).abs()[ok].max()),
                      float((out[2].double() - g64).abs()[ok].max()),
                      float((out[4].double() - sacc64).abs().max()))

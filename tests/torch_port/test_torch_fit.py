@@ -133,9 +133,12 @@ def test_entry_points_refuse_without_cuda():
 
 def test_unported_options_raise():
     freq, Zb = _batch()
+    no_esc = {k: v for k, v in KW.items() if k != "escalate"}
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        fit_spectra_batch(freq, Zb, device="cpu", escalate=True,
-                          **{k: v for k, v in KW.items() if k != "escalate"})
+        fit_spectra_batch(freq, Zb, device="cpu", escalate=True, **no_esc)
+    # the default (escalate=None) means escalation on for shmc
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        fit_spectra_batch(freq, Zb, device="cpu", **no_esc)
     with pytest.raises(NotImplementedError, match="optimize"):
         fit_spectra_batch(freq, Zb, device="cpu",
                           **{**KW, "mode": "optimize"})
