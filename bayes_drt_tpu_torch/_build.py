@@ -32,7 +32,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # <symbol>_f64 alike; every entry returns its cudaError_t as an int
 SIGNATURES = {
     "quad": {"drt_quad": [_P] * 3 + [_I] * 3 + [_P] * 2},
-    "traj": {"traj": [_P] * 15 + [_I] * 3 + [_D] + [_P] * 4},
+    "traj": {"traj": [_P] * 13 + [_I] * 3 + [_D] + [_P] * 4},
 }
 
 _loaded: dict = {}

@@ -9,17 +9,27 @@
 //   imag: -0.5 sech(u) = -0.5 * 2 e^{-|u|} / (1 + e^{-2|u|})
 // phiw folds the Gaussian basis and the trapezoid weights together.
 //
-// What bounds it: nothing on this card. At the main path's shapes (N=81,
-// K=101, Q=1000) it is 8.2 M integrand evaluations and a 65 KB output,
-// a few microseconds of work, so the launch dominates.
-// Design: one thread per (n, k) output with a sequential loop over the Q
-// points. The Pallas kernel accumulated 128-point chunks across sequential
-// grid steps into one VMEM tile; blocks here run unordered, so each thread
-// owns its whole sum instead, and Q is an argument (no padding).
-// Compile without --use_fast_math: exp must be the accurate one.
+// What bounds it on this card: operations. Every node costs one exp and
+// one IEEE divide besides the multiply-adds, and in float64 each of those
+// is a few dozen instructions on the fp64 pipe (64 a clock per SM). At the
+// main path's shapes (N=81, K=101, Q=1000) that is 8.2 M nodes and a
+// 65 KB output, so the kernel must spread the nodes over every SM and
+// keep enough independent exps in flight to hide their latency.
+// Design: one warp per output (8,181 warps at the main path's shapes, a
+// full wave of 64 warps on each of the 132 SMs); its 32 lanes split the Q
+// nodes, each keeping its own partial sum, and a shuffle tree adds them.
+// A block of 8 warps first loads y and phiw into shared memory. The
+// Pallas kernel accumulated 128-point chunks across sequential grid steps
+// into one VMEM tile; blocks here run unordered, so each warp owns its
+// outputs' whole sums, and Q is an argument (no padding).
+// Compile without --use_fast_math: exp and the divide must be IEEE.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace {
+
+constexpr int NT = 256;  // threads per block, one output per warp
 
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
@@ -32,38 +42,68 @@ __device__ __forceinline__ double dclip(double x, double lo, double hi) {
   return fmin(fmax(x, lo), hi);
 }
 
-template <typename T>
-__global__ void drt_quad_kernel(const T* __restrict__ s,
-                                const T* __restrict__ y,
-                                const T* __restrict__ phiw, int nk, int nq,
-                                int imag, T* __restrict__ out) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nk) return;
-  const T sv = s[idx];
-  T acc = T(0);
-  if (imag) {
-    for (int q = 0; q < nq; ++q) {
-      T e = dexp(-dabs(y[q] + sv));
-      acc += (T(-0.5) * (T(2) * e / (T(1) + e * e))) * phiw[q];
-    }
-  } else {
-    for (int q = 0; q < nq; ++q) {
-      T u = dclip(y[q] + sv, T(-40), T(40));
-      acc += (T(1) / (T(1) + dexp(T(2) * u))) * phiw[q];
-    }
+template <typename T, bool IMAG>
+__global__ void __launch_bounds__(NT) drt_quad_kernel(
+    const T* __restrict__ s, const T* __restrict__ y,
+    const T* __restrict__ phiw, int nk, int nq, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ys = reinterpret_cast<T*>(smem_raw);
+  T* ws = ys + nq;
+  for (int q = threadIdx.x; q < nq; q += NT) {
+    ys[q] = y[q];
+    ws[q] = phiw[q];
   }
-  out[idx] = acc;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  constexpr int WPB = NT / 32;
+  for (int idx = blockIdx.x * WPB + (threadIdx.x >> 5); idx < nk;
+       idx += gridDim.x * WPB) {
+    const T sv = s[idx];
+    T acc = T(0);
+#pragma unroll 4
+    for (int q = lane; q < nq; q += 32) {
+      if (IMAG) {
+        const T e = dexp(-dabs(ys[q] + sv));
+        acc += (T(-0.5) * (T(2) * e / (T(1) + e * e))) * ws[q];
+      } else {
+        const T u = dclip(ys[q] + sv, T(-40), T(40));
+        acc += (T(1) / (T(1) + dexp(T(2) * u))) * ws[q];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) out[idx] = acc;
+  }
+}
+
+template <typename T, bool IMAG>
+int launch_part(const T* s, const T* y, const T* phiw, int nk, int nq,
+                T* out, cudaStream_t stream) {
+  const size_t bytes = 2 * (size_t)nq * sizeof(T);
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        drt_quad_kernel<T, IMAG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (nk + NT / 32 - 1) / (NT / 32);
+  drt_quad_kernel<T, IMAG><<<blocks, NT, bytes, stream>>>(s, y, phiw, nk, nq,
+                                                          out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-static int launch(const void* s, const void* y, const void* phiw, int nk,
-                  int nq, int imag, void* out, void* stream) {
-  const int threads = 128;
-  const int blocks = (nk + threads - 1) / threads;
-  drt_quad_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)s, (const T*)y, (const T*)phiw, nk, nq, imag, (T*)out);
-  return (int)cudaGetLastError();
+int launch(const void* s, const void* y, const void* phiw, int nk, int nq,
+           int imag, void* out, void* stream) {
+  if (imag)
+    return launch_part<T, true>((const T*)s, (const T*)y, (const T*)phiw, nk,
+                                nq, (T*)out, (cudaStream_t)stream);
+  return launch_part<T, false>((const T*)s, (const T*)y, (const T*)phiw, nk,
+                               nq, (T*)out, (cudaStream_t)stream);
 }
+
+}  // namespace
 
 extern "C" int drt_quad_f32(const void* s, const void* y, const void* phiw,
                             int nk, int nq, int imag, void* out,

@@ -15,23 +15,60 @@
 // ever-diverged].
 //
 // What bounds it on this card: fp32 operations. Per row per leapfrog the
-// four matvecs and their adjoints are 2*(2n*K) + 6*K^2 FMAs (93,930 at
-// n=81, K=101), about 24.6 GFLOP per draw at 4096 rows, against ~24 MB of
-// device memory traffic per draw (rows in and out once; A and L stay in
-// L2). On CUDA cores that is ~0.37 ms at the 67 TFLOP/s fp32 peak.
+// matvecs are 2 * (2n + 3K) * K FMAs (93,930 at n=81, K=101), about 24.6
+// GFLOP per draw at 4096 rows: ~0.37 ms at the 67 TFLOP/s fp32 CUDA-core
+// peak, against ~24 MB of device memory traffic (0.007 ms). In practice
+// the two products issue from shared memory (three 16-byte loads per 32
+// FMAs) and wait at one barrier per staged chunk; the per-element phases
+// (exp, log and IEEE divides on every index) are latency-bound.
 //
-// Design (simple first): one block of 128 threads owns RB rows (8 in fp32,
-// 4 in fp64) for the whole trajectory. Every per-row vector lives in
-// dynamic shared memory interleaved as [index][row], so a matvec thread
-// owns one output index for all RB rows and each element of A or L read
-// from global memory (L1/L2 resident, read coalesced through a transposed
-// copy where needed) feeds RB FMAs. Elementwise phases give each thread a
-// fixed row (tid % RB), so per-row sums reduce with warp shuffles across
-// lanes of equal (lane % RB) and one shared-memory pass across warps. All
-// sums are plain fp32/fp64 FMA, no tensor cores (no TF32). Compile without
-// --use_fast_math: the freeze and selection logic needs IEEE inf/NaN
-// semantics (logaddexp(-inf,-inf) = -inf, (-inf)-(-inf) = NaN so a frozen
-// leaf is never taken) and an accurate exp.
+// Design. A and the three L matrices are stacked into one zero-padded
+// matrix W (OP x KP) = [A; L0; L1; L2], so a leaf is two matrix products
+// over the block's rows: P = W x_raw (prediction and the three L x_raw
+// at once) and g = W^T y (y = [x_scale g_pred; dlp/dLx]). One block of NT
+// threads owns RB rows, so each element of W read into shared memory
+// feeds RB rows. The launch takes the first tile (Cfg) that holds the
+// shape: the main tile, 512 threads over 32 rows in fp32 and 16 in fp64
+// (128 blocks at R=4096, one wave), for K <= 128 with each product in one
+// pass and 32 KB stages (the main path's shapes); the same tile with
+// passes, for longer sweeps up to K = 128; and a wide tile, 256 threads
+// over 8 rows with 9 basis slots a lane (K <= 288, about a third of the
+// shared memory a row-index).
+// - Matvecs: W (or W^T) streams through three shared-memory stages (32 KB
+//   each; with passes, halved until the block fits) by cp.async, two
+//   chunks in flight while one is consumed, one barrier a chunk; the
+//   first chunks of the next product are issued before the per-element
+//   phase that precedes it. Each thread holds an 8 x RB/8 (outputs x
+//   rows) register tile; with passes a product runs over its outputs in
+//   passes of NT (P) or NT/4 (g), each staging only its columns. For P a
+//   thread's outputs are two runs of four, so a quarter-warp reads 128
+//   contiguous bytes of a W^T row; for g the sum over the stacked rows is
+//   split over four adjacent lanes and reduced by shuffles. The vectors
+//   are [index][row] in shared memory with a row stride padded by 16
+//   bytes against bank conflicts. The one-pass tile is compiled apart:
+//   the pass loop and the column staging cost the main path ~5% when
+//   they are compiled in (register spills).
+// - Per-row state: a row belongs to LPR = NT/RB lanes of one warp. Lane
+//   s holds q and the half-stepped momentum of basis indices s + LPR c in
+//   registers (128 registers a thread at 512 threads); S/ups^2, ups and
+//   the nine scalar parameters sit in shared memory, and lane 0 of the
+//   row updates the scalars. Per-row sums reduce by warp shuffles, and the
+//   per-row scalar step (lp, scalar gradients, kinetic energy, selection)
+//   runs on lane 0 with no block-wide pass: four barriers per leaf besides
+//   one per staged chunk. Each dups window's two gradient weights are
+//   computed once per window into P's rows, free after the transpose.
+// - The proposal is written to q_out/g_out on each multinomial take. A
+//   frozen leg does no per-element work and keeps no state: its leaves
+//   carry weight -inf, and nothing reads its state before the flip at j
+//   restores the start point. (Its diverged values would otherwise run
+//   exp, log and divide through their slow special-value paths.)
+// All sums are plain fp32/fp64 FMA on CUDA cores, no tensor cores (no
+// TF32). Compile without --use_fast_math: the freeze and selection logic
+// needs IEEE inf/NaN semantics (logaddexp(-inf,-inf) = -inf,
+// (-inf)-(-inf) = NaN so a frozen leaf is never taken) and an accurate exp.
+// The launch returns SHAPE_UNSUPPORTED (-1) when no tile holds the
+// shape (K > 288, or 2n + 6K beyond some 2,800 rows in fp64); the
+// wrapper raises it as a ValueError.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,13 +76,24 @@
 
 namespace {
 
-constexpr int NT = 128;           // threads per block
-constexpr int NW = NT / 32;       // warps per block
-constexpr int NRED = 12;          // sums reduced together per leaf
+constexpr int STAGE_MAX = 32768;    // bytes of each cp.async stage, at most
+constexpr int NSUM = 13;            // per-row sums per leaf (12 + kinetic)
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SHAPE_UNSUPPORTED = -1;
 
 struct Spec {
   int K, n, D, ncp, nonneg;
   int o_rinf, o_ai, o_ap, o_ar, o_d, o_iu, o_sr, o_u, o_x;
+  int OP, KP;  // W's shape: >= 2n + 3K and >= 2 KP rows, K columns; by 8
+};
+
+// Tile-dependent sizes and shared-memory offsets (in elements), computed
+// on the host; the kernel reads them from its parameters
+struct Lay {
+  int KP, OV, OP, SE;           // padded K, stacked rows (real, padded), stage
+  int pf, pb, KC, OC;           // pass widths; rows of W^T / W a stage holds
+  int nF, nB, npF, npB;         // chunks a pass, passes, of P and of g
+  int py, xg, ups, su, rsc, sq, sp, sm, total;
 };
 
 template <typename T>
@@ -58,10 +106,8 @@ struct Args {
   const T* minv;   // (R, D) diagonal inverse metric
   const T* tgt;    // (R, 2n)
   const T* usel;   // (n_leap, R) selection uniforms
-  const T* A;      // (2n, K)
-  const T* AT;     // (K, 2n)
-  const T* L;      // (3, K, K)
-  const T* LT;     // (3, K, K), each transposed
+  const T* W;      // (OP, KP) [A; L0; L1; L2], zero padded
+  const T* WT;     // (KP, OP) W transposed
   const T* vecs;   // (3, 2n): rinf_vec, induc_vec, lik_mask
   const T* scal;   // (8,)
   T* q_out;        // (R, D)
@@ -70,15 +116,55 @@ struct Args {
   Spec sp;
   int R, n_leap, j;
   T max_e;
+  Lay L;
 };
 
-// per-row scalar slots in shared memory, each RB wide
-enum {
-  S_LP, S_LP0, S_H0, S_EPS, S_LOGW, S_PLP, S_PKIN, S_SACC, S_DEAD, S_EVER,
-  S_TAKE, S_ALIVE, S_LPN, S_KIN,
-  S_ER, S_EI, S_ES, S_EAP, S_EAR, S_EAI, S_DS0, S_DS1, S_DS2,
-  NSC
+// A tile: NT threads over RB rows, SLOTS basis indices a lane. Without
+// PASSES it takes only shapes whose products fit one pass each and 32 KB
+// stages, and its chunk loops compile to a single pass.
+template <typename T, int NT_, int RB_, int SLOTS_, bool PASSES_>
+struct Cfg {
+  static constexpr int NT = NT_, RB = RB_, SLOTS = SLOTS_;
+  static constexpr bool PASSES = PASSES_;
+  static constexpr int LPR = NT / RB;            // lanes per row
+  static constexpr int RPW = 32 / LPR;           // rows per warp
+  static constexpr int KMAX = SLOTS * LPR;       // basis size the slots hold
+  static constexpr int VEC = 16 / sizeof(T);     // elements per 16 bytes
+  static constexpr int XS = RB + VEC;            // padded row stride
+  static constexpr int TR = RB / 8;              // rows per matvec tile
+  static constexpr int PF = NT;                  // outputs of a P pass
+  static constexpr int PB = NT / 4;              // outputs of a g pass
+  static_assert(LPR <= 32 && 32 % LPR == 0, "a row's lanes share one warp");
+  static_assert(RB % 8 == 0 && NT % 64 == 0, "eight row tiles, warp pairs");
 };
+
+template <class C>
+Lay layout(const Spec& sp, int SE) {
+  constexpr int RB = C::RB;
+  Lay l;
+  l.KP = sp.KP;
+  l.OV = 2 * sp.n + 3 * sp.K;
+  l.OP = sp.OP;
+  l.SE = SE;
+  l.pf = l.OP < C::PF ? l.OP : C::PF;
+  l.pb = l.KP < C::PB ? l.KP : C::PB;
+  l.KC = SE / l.pf;
+  l.OC = SE / l.pb;
+  l.nF = l.KC ? (sp.K + l.KC - 1) / l.KC : 0;
+  l.nB = l.OC ? (l.OV + l.OC - 1) / l.OC : 0;
+  l.npF = (l.OP + C::PF - 1) / C::PF;
+  l.npB = (l.KP + C::PB - 1) / C::PB;
+  l.py = 3 * SE;                // P, then y: [OP][XS]
+  l.xg = l.py + l.OP * C::XS;   // x_raw, then g_x: [KP][XS]
+  l.ups = l.xg + l.KP * C::XS;  // ups: [KP][XS]
+  l.su = l.ups + l.KP * C::XS;  // S / ups^2 of the q-penalty: [KP][XS]
+  l.rsc = l.su + l.KP * C::XS;  // exp of the nine scalar parameters [9][RB]
+  l.sq = l.rsc + 9 * RB;        // scalar parameters [9][RB]
+  l.sp = l.sq + 9 * RB;         // their half-stepped momenta [9][RB]
+  l.sm = l.sp + 9 * RB;         // their inverse metric [9][RB]
+  l.total = l.sm + 9 * RB;
+  return l;
+}
 
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
@@ -103,500 +189,650 @@ __device__ __forceinline__ T logaddexp(T a, T b) {
   return dmax(a, b) + dlog1p(dexp(-dabs(delta)));
 }
 
-// Sum NV per-thread partials over the threads that own the same row
-// (tid % RB): shuffles within a warp, then one pass over warps. Results go
-// to out[v * RB + row]. Ends with a barrier.
-template <typename T, int RB, int NV>
-__device__ void block_reduce(T (&v)[NV], T* red, T* out) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// N consecutive elements from/to shared memory: 16-byte vectors when N
+// fills whole vectors (the run is then 16-byte aligned), else one by one
+template <int N>
+__device__ __forceinline__ void ldv(const float* p, float* o) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int off = 16; off >= RB; off >>= 1) {
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      o[i] = v.x; o[i + 1] = v.y; o[i + 2] = v.z; o[i + 3] = v.w;
+    }
+  } else {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
-  }
-  if (lane < RB) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) red[(warp * NV + i) * RB + lane] = v[i];
-  }
-  __syncthreads();
-  if (tid < NV * RB) {
-    const int i = tid / RB, r = tid % RB;
-    T s = T(0);
-#pragma unroll
-    for (int w = 0; w < NW; ++w) s += red[(w * NV + i) * RB + r];
-    out[i * RB + r] = s;
-  }
-  __syncthreads();
-}
-
-// out[o][r] = sum_k M[k * ld + o] * x[k][r] for o in [0, m), k in [0, kd)
-template <typename T, int RB>
-__device__ __forceinline__ void matvec_rows(const T* __restrict__ M, int ld,
-                                            int kd, int o,
-                                            const T* __restrict__ x,
-                                            T (&acc)[RB]) {
-#pragma unroll
-  for (int r = 0; r < RB; ++r) acc[r] = T(0);
-  for (int k = 0; k < kd; ++k) {
-    const T a = __ldg(M + (size_t)k * ld + o);
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = dfma(a, x[k * RB + r], acc[r]);
+    for (int i = 0; i < N; ++i) o[i] = p[i];
   }
 }
-
-struct Smem {
-  // offsets (in elements) of every array; each holds width x RB values
-  int q, p, g, qn, pn, gn, pq, pg, minv, tgt, ups, xr, pred, wv, gp, lx,
-      su, gx, red, sums, rs, total;
-};
-
-template <int RB>
-__host__ __device__ inline Smem smem_layout(int D, int K, int n) {
-  Smem s;
-  s.q = 0;
-  s.p = s.q + D * RB;
-  s.g = s.p + D * RB;
-  s.qn = s.g + D * RB;
-  s.pn = s.qn + D * RB;
-  s.gn = s.pn + D * RB;
-  s.pq = s.gn + D * RB;
-  s.pg = s.pq + D * RB;
-  s.minv = s.pg + D * RB;
-  s.tgt = s.minv + D * RB;
-  s.ups = s.tgt + 2 * n * RB;
-  s.xr = s.ups + K * RB;
-  s.pred = s.xr + K * RB;
-  s.wv = s.pred + 2 * n * RB;
-  s.gp = s.wv + 2 * n * RB;
-  s.lx = s.gp + 2 * n * RB;
-  s.su = s.lx + 3 * K * RB;
-  s.gx = s.su + K * RB;
-  s.red = s.gx + K * RB;
-  s.sums = s.red + NW * NRED * RB;
-  s.rs = s.sums + NRED * RB;
-  s.total = s.rs + NSC * RB;
-  return s;
+template <int N>
+__device__ __forceinline__ void ldv(const double* p, double* o) {
+  if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const double2 v = *reinterpret_cast<const double2*>(p + i);
+      o[i] = v.x; o[i + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = p[i];
+  }
+}
+template <int N>
+__device__ __forceinline__ void stv(float* p, const float* o) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(o[i], o[i + 1], o[i + 2], o[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = o[i];
+  }
+}
+template <int N>
+__device__ __forceinline__ void stv(double* p, const double* o) {
+  if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2)
+      *reinterpret_cast<double2*>(p + i) = make_double2(o[i], o[i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = o[i];
+  }
 }
 
-// lp and gradient of the rows held in qn; writes gn and rs[S_LPN].
-template <typename T, int RB>
-__device__ void value_and_grad(const Args<T>& a, const Smem& L, T* sm) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one committed group of this thread is in flight
+__device__ __forceinline__ void cp_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Issue chunk g of the forward product (FWD: rows of W^T, k over K) or
+// of the transpose (rows of W, o over the OV stacked rows) into stage
+// buffer g % 3, dense as [rows][pass width]; with passes, chunk g is
+// chunk g % nc of pass g / nc, which covers the outputs [p w, p w + w)
+// (columns). Past the last chunk the group is empty, so that every
+// thread commits one group per call.
+template <class C, bool FWD, typename T>
+__device__ __forceinline__ void issue(const Args<T>& a, int g, T* stage,
+                                      int SE) {
+  constexpr int V = 16 / sizeof(T);
+  const Lay& L = a.L;
+  const int ld = FWD ? L.OP : L.KP, rows_per = FWD ? L.KC : L.OC;
+  const int rows = FWD ? a.sp.K : L.OV;
+  const T* src = FWD ? a.WT : a.W;
+  T* d = stage + (g % 3) * SE;
+  if constexpr (!C::PASSES) {
+    const int r0 = g * rows_per;
+    if (r0 < rows) {
+      const int nv = min(rows_per, rows - r0) * ld / V;
+      src += (size_t)r0 * ld;
+      for (int v = threadIdx.x; v < nv; v += C::NT)
+        cp_async16(d + v * V, src + v * V);
+    }
+  } else {
+    const int nc = FWD ? L.nF : L.nB;
+    if (g < nc * (FWD ? L.npF : L.npB)) {
+      const int ps = g / nc, c = g - ps * nc;
+      const int c0 = ps * (FWD ? L.pf : L.pb);
+      const int w = min(FWD ? L.pf : L.pb, ld - c0), wv = w / V;
+      const int r0 = c * rows_per, nr = min(rows_per, rows - r0);
+      src += (size_t)r0 * ld + c0;
+      for (int v = threadIdx.x; v < nr * wv; v += C::NT) {
+        const int rr = v / wv, cc = v - rr * wv;
+        cp_async16(d + rr * w + cc * V, src + (size_t)rr * ld + cc * V);
+      }
+    }
+  }
+  cp_commit();
+}
+
+// Sum over the LPR lanes of a row (all lanes end with the sum)
+template <int LPR, typename T>
+__device__ __forceinline__ T row_sum(T v) {
+#pragma unroll
+  for (int off = LPR / 2; off >= 1; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+template <typename T, class C>
+__global__ void __launch_bounds__(C::NT, 1) traj_kernel(Args<T> a) {
+  constexpr int NT = C::NT, RB = C::RB;
+  constexpr int LPR = C::LPR, SLOTS = C::SLOTS, XS = C::XS, TR = C::TR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
   const Spec& sp = a.sp;
-  const int tid = threadIdx.x, r = tid % RB, i0 = tid / RB;
-  constexpr int SR = NT / RB;
-  const int K = sp.K, n = sp.n, n2 = 2 * n;
+  const int K = sp.K, n = sp.n, n2 = 2 * n, D = sp.D;
+  const Lay& L = a.L;
+  constexpr bool PS = C::PASSES;
+  const int SE = PS ? L.SE : STAGE_MAX / (int)sizeof(T);
+  T* stage = sm;
+  T* py = sm + L.py; T* xg = sm + L.xg; T* ups = sm + L.ups;
+  T* sus = sm + L.su;
+  T* rsc = sm + L.rsc; T* sq = sm + L.sq; T* spm = sm + L.sp;
+  T* smv = sm + L.sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = lane % LPR;                       // lane within its row
+  const int r = warp * C::RPW + lane / LPR;       // row within the block
+  const int lead = lane & ~(LPR - 1);             // lane 0 of the row
+  const int row0 = blockIdx.x * RB;
+  // rows past R (ragged last block) duplicate row R-1 and are not stored
+  const int gr = min(row0 + r, a.R - 1);
+  const bool store = row0 + r < a.R;
+  const size_t rb = (size_t)gr * D;
+  const bool ncp = sp.ncp != 0, nonneg = sp.nonneg != 0;
+  const int so[9] = {sp.o_rinf, sp.o_ai, sp.o_ap, sp.o_ar, sp.o_iu, sp.o_sr,
+                     sp.o_d, sp.o_d + 1, sp.o_d + 2};
   const T LS2P = T(0.91893853320467274178);   // log(sqrt(2 pi))
   const T LOG15 = T(-1.89711998488588130204);  // log(0.15)
-  T* qn = sm + L.qn; T* gn = sm + L.gn; T* ups = sm + L.ups;
-  T* xr = sm + L.xr; T* pred = sm + L.pred; T* wv = sm + L.wv;
-  T* gp = sm + L.gp; T* lx = sm + L.lx; T* su = sm + L.su; T* gx = sm + L.gx;
-  T* rs = sm + L.rs;
   const T smin = a.scal[0], ua = a.scal[1], ub = a.scal[2];
   const T induc_scale = a.scal[3], xs = a.scal[4], cu = a.scal[5];
   const T* rv = a.vecs;
   const T* iv = a.vecs + n2;
   const T* mask = a.vecs + 2 * n2;
-  const bool ncp = sp.ncp != 0, nonneg = sp.nonneg != 0;
+  const T eps = a.eps[gr], he = T(0.5) * eps;
 
-  // ---- phase 1: per-row scalars, ups and x_raw ----
-  if (tid < RB) {
-    rs[S_ER * RB + tid] = dexp(qn[sp.o_rinf * RB + tid]);
-    rs[S_EI * RB + tid] = dexp(qn[sp.o_iu * RB + tid]);
-    rs[S_ES * RB + tid] = dexp(qn[sp.o_sr * RB + tid]);
-    rs[S_EAP * RB + tid] = dexp(qn[sp.o_ap * RB + tid]);
-    rs[S_EAR * RB + tid] = dexp(qn[sp.o_ar * RB + tid]);
-    rs[S_EAI * RB + tid] = dexp(qn[sp.o_ai * RB + tid]);
-    rs[S_DS0 * RB + tid] = dexp(qn[(sp.o_d + 0) * RB + tid]);
-    rs[S_DS1 * RB + tid] = dexp(qn[(sp.o_d + 1) * RB + tid]);
-    rs[S_DS2 * RB + tid] = dexp(qn[(sp.o_d + 2) * RB + tid]);
-  }
-  for (int i = i0; i < K; i += SR) {
-    const T u = qn[(sp.o_u + i) * RB + r];
-    const T v = qn[(sp.o_x + i) * RB + r];
-    const T up = dexp(u) * T(0.15);
-    const T base = nonneg ? dexp(v) : v;
-    ups[i * RB + r] = up;
-    xr[i * RB + r] = ncp ? base * up : base;
-  }
-  __syncthreads();
+  // matvec tiles, for rows TR rt + [0, TR) (eight row tiles: four in a
+  // warp, two warps). Forward, in a pass of width w from c0: outputs c0 +
+  // 4 ot + [0, 4) and c0 + w/2 + 4 ot + [0, 4), so a quarter-warp reads
+  // 128 contiguous bytes of a W^T row. Transpose: outputs c0 + 4 it +
+  // [0, 4) and c0 + w/2 + 4 it + [0, 4), over the stacked rows o = hb
+  // (mod 4), the four residues hb in adjacent lanes.
+  const int rt = (warp & 1) * 4 + (lane >> 3);
+  const int ot = (warp >> 1) * 8 + (lane & 7);
+  const int hb = lane & 3, it = (warp >> 1) * 2 + ((lane >> 2) & 1);
 
-  // ---- phase 2: pred = x A^T + rinf*rv + induc*iv ----
-  for (int o = tid; o < n2; o += NT) {
-    T acc[RB];
-    matvec_rows<T, RB>(a.AT, n2, K, o, xr, acc);
+  // per-lane state: position and half-stepped momentum of u_i and x_i for
+  // i = s + LPR c; S/ups^2 of the q-penalty from one phase to the next
+  T qu[SLOTS], qx[SLOTS], pu[SLOTS], px[SLOTS];
 #pragma unroll
-    for (int rr = 0; rr < RB; ++rr) {
-      const T rinf = rs[S_ER * RB + rr] * T(100);
-      const T induc = rs[S_EI * RB + rr] * induc_scale;
-      pred[o * RB + rr] = acc[rr] * xs + rinf * rv[o] + induc * iv[o];
-    }
-  }
-  __syncthreads();
+  for (int c = 0; c < SLOTS; ++c) qu[c] = qx[c] = pu[c] = px[c] = T(0);
+  // per-row scalars, meaningful on the row's lane 0 (dead on every lane:
+  // a frozen leg does no per-element work until the flip restarts it)
+  T H0 = T(0), logw = T(0), plp = T(0), pkin = T(0), sacc = T(0);
+  bool dead = false, ever = false;
 
-  // row scalars of this thread's row
-  const T er = rs[S_ER * RB + r], ei = rs[S_EI * RB + r];
-  const T es = rs[S_ES * RB + r], eap = rs[S_EAP * RB + r];
-  const T ear = rs[S_EAR * RB + r], eai = rs[S_EAI * RB + r];
-  const T sres = es * T(0.05), a_p = eap * T(0.05);
-  const T a_re = ear * T(0.05), a_im = eai * T(0.05);
-
-  // ---- phase 3: likelihood terms, w = dl/dvar, gl = direct dl/dpred ----
-  T part[NRED];
-#pragma unroll
-  for (int i = 0; i < NRED; ++i) part[i] = T(0);
-  for (int t = i0; t < n2; t += SR) {
-    const int tm = t < n ? t : t - n;
-    const T pr = pred[t * RB + r];
-    const T pre = pred[tm * RB + r], pim = pred[(tm + n) * RB + r];
-    const T e1 = a_p * pr, e2 = a_re * pre, e3 = a_im * pim;
-    const T var = smin * smin + sres * sres + e1 * e1 + e2 * e2 + e3 * e3;
-    const T resid = sm[L.tgt + t * RB + r] - pr;
-    const T ivar = T(1) / var;
-    const T m = mask[t];
-    part[0] += m * (T(-0.5) * resid * resid * ivar - T(0.5) * dlog(var) - LS2P);
-    const T w = m * T(0.5) * (resid * resid * ivar - T(1)) * ivar;
-    wv[t * RB + r] = w;
-    gp[t * RB + r] = m * resid * ivar;
-    part[1] += w;
-    part[2] += w * pr * pr;
-  }
-  __syncthreads();
-
-  // ---- phase 4: g_pred and its scalar sums ----
-  for (int t = i0; t < n2; t += SR) {
-    const int tm = t < n ? t : t - n;
-    const T ws = wv[tm * RB + r] + wv[(tm + n) * RB + r];
-    const T pr = pred[t * RB + r];
-    const T aa = t < n ? a_re : a_im;
-    const T gpv = gp[t * RB + r] + wv[t * RB + r] * (T(2) * (a_p * a_p) * pr)
-                  + T(2) * (aa * aa) * pr * ws;
-    gp[t * RB + r] = gpv;
-    part[3] += gpv * rv[t];
-    part[4] += gpv * iv[t];
-    if (t < n) {
-      const T pim = pred[(t + n) * RB + r];
-      part[5] += ws * pr * pr;
-      part[6] += ws * pim * pim;
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 5: g_x = x_scale * g_pred A (K outputs) and Lx_m = L_m x_raw
-  // (3K outputs) ----
-  for (int o = tid; o < 4 * K; o += NT) {
-    T acc[RB];
-    if (o < K) {
-      matvec_rows<T, RB>(a.A, K, n2, o, gp, acc);
-#pragma unroll
-      for (int rr = 0; rr < RB; ++rr) gx[o * RB + rr] = xs * acc[rr];
-    } else {
-      const int m = (o - K) / K, i = (o - K) % K;
-      matvec_rows<T, RB>(a.LT + (size_t)m * K * K, K, K, i, xr, acc);
-#pragma unroll
-      for (int rr = 0; rr < RB; ++rr) lx[(m * K + i) * RB + rr] = acc[rr];
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 6: q-penalty terms; Lx_m becomes gLx_m = -ds_m Lx_m / ups^2 ----
-  const T ds0 = rs[S_DS0 * RB + r], ds1 = rs[S_DS1 * RB + r];
-  const T ds2 = rs[S_DS2 * RB + r];
-  for (int i = i0; i < K; i += SR) {
-    const T up = ups[i * RB + r];
-    const T iu2 = T(1) / (up * up);
-    const T l0 = lx[(0 * K + i) * RB + r];
-    const T l1 = lx[(1 * K + i) * RB + r];
-    const T l2 = lx[(2 * K + i) * RB + r];
-    const T S = ds0 * l0 * l0 + ds1 * l1 * l1 + ds2 * l2 * l2;
-    const T u = qn[(sp.o_u + i) * RB + r];
-    part[7] += T(-0.5) * S * iu2 - u - (LOG15 + LS2P);
-    part[8] += l0 * l0 * iu2;
-    part[9] += l1 * l1 * iu2;
-    part[10] += l2 * l2 * iu2;
-    su[i * RB + r] = S * iu2;
-    lx[(0 * K + i) * RB + r] = -ds0 * l0 * iu2;
-    lx[(1 * K + i) * RB + r] = -ds1 * l1 * iu2;
-    lx[(2 * K + i) * RB + r] = -ds2 * l2 * iu2;
-  }
-  __syncthreads();
-
-  // ---- phase 7: g_x += sum_m gLx_m L_m ----
-  for (int o = tid; o < K; o += NT) {
-    T acc[RB];
-    matvec_rows<T, RB>(a.L, K, 3 * K, o, lx, acc);
-#pragma unroll
-    for (int rr = 0; rr < RB; ++rr) gx[o * RB + rr] += acc[rr];
-  }
-  __syncthreads();
-
-  // ---- phase 8: ups and coefficient gradients; per-k log-density terms ----
-  for (int i = i0; i < K; i += SR) {
-    const T up = ups[i * RB + r];
-    const T u = qn[(sp.o_u + i) * RB + r];
-    const T v = qn[(sp.o_x + i) * RB + r];
-    const T xraw = xr[i * RB + r];
-    const T gxr = gx[i * RB + r];
-    const T emu = dexp(-u);
-    T gu = (su[i * RB + r] - T(1)) - (ua + T(1)) + ub * emu + T(1);
-    if (ncp) gu += T(1) + gxr * xraw;
-    // dups(i) couples ups[i], ups[i+1], ups[i+2] for i in [0, K-2)
-    T gud = T(0);
-    for (int s = 0; s < 3; ++s) {
-      const int b = i - s;             // window whose member s is ups[i]
-      if (b < 0 || b > K - 3) continue;
-      const T aw = ups[b * RB + r], cw = ups[(b + 1) * RB + r];
-      const T bw = ups[(b + 2) * RB + r];
-      const T dups = T(0.5) * (cw - T(0.5) * (aw + bw)) / cw;
-      const T wd = -dups;
-      if (s == 1) gud += wd * T(0.25) * (aw + bw) / (cw * cw);
-      else gud += wd * (T(-0.25) / cw);
-      if (s == 0) part[11] += T(-0.5) * dups * dups;
-    }
-    gu += gud * up;
-    const T dxdv = nonneg ? xraw : (ncp ? up : T(1));
-    T gv = gxr * dxdv;
-    if (nonneg) gv += T(1);
-    gn[(sp.o_u + i) * RB + r] = gu;
-    gn[(sp.o_x + i) * RB + r] = gv;
-    // inv-gamma prior on exp(u), Jacobians of u (and v, ncp)
-    part[11] += cu - (ua + T(1)) * u - ub * emu + u;
-    if (nonneg) part[11] += v;
-    if (ncp) part[11] += u;
-  }
-  block_reduce<T, RB, NRED>(part, sm + L.red, sm + L.sums);
-
-  // ---- per-row scalars: lp and the scalar gradients ----
-  if (tid < RB) {
-    const int rr = tid;
-    const T* sums = sm + L.sums;
-    auto sum = [&](int i) { return sums[i * RB + rr]; };
-    const T q_r = qn[sp.o_rinf * RB + rr], q_ai = qn[sp.o_ai * RB + rr];
-    const T q_ap = qn[sp.o_ap * RB + rr], q_ar = qn[sp.o_ar * RB + rr];
-    const T q_iu = qn[sp.o_iu * RB + rr], q_sr = qn[sp.o_sr * RB + rr];
-    const T er_ = rs[S_ER * RB + rr], ei_ = rs[S_EI * RB + rr];
-    const T es_ = rs[S_ES * RB + rr], eap_ = rs[S_EAP * RB + rr];
-    const T ear_ = rs[S_EAR * RB + rr], eai_ = rs[S_EAI * RB + rr];
-    const T rinf = er_ * T(100), induc = ei_ * induc_scale;
-    const T sres_ = es_ * T(0.05), ap_ = eap_ * T(0.05);
-    const T are_ = ear_ * T(0.05), aim_ = eai_ * T(0.05);
-    const T c5 = T(5.0 * 1.6094379124341003 - 3.1780538303479458);  // 5 log 5 - lgamma 5
-    T lp = sum(0) + sum(7) + sum(11) - T(K - 2) * LS2P;
-    lp += T(-0.5) * (er_ * er_ + ei_ * ei_ + es_ * es_ + eap_ * eap_
-                     + ear_ * ear_ + eai_ * eai_) - T(6) * LS2P;
-    lp += q_r + q_ai + q_ap + q_ar + q_iu + q_sr;
-    const T dsv[3] = {rs[S_DS0 * RB + rr], rs[S_DS1 * RB + rr],
-                      rs[S_DS2 * RB + rr]};
-    for (int m = 0; m < 3; ++m) {
-      const T d = qn[(sp.o_d + m) * RB + rr];
-      const T emd = dexp(-d);
-      lp += c5 - T(6) * d - T(5) * emd + d;
-      gn[(sp.o_d + m) * RB + rr] =
-          T(-0.5) * sum(8 + m) * dsv[m] + T(1) - T(6) + T(5) * emd;
-    }
-    if (ncp) lp += T(K) * LOG15;
-    rs[S_LPN * RB + rr] = lp;
-    gn[sp.o_rinf * RB + rr] = sum(3) * rinf + T(1) - er_ * er_;
-    gn[sp.o_iu * RB + rr] = sum(4) * induc + T(1) - ei_ * ei_;
-    gn[sp.o_sr * RB + rr] = sum(1) * T(2) * sres_ * sres_ + T(1) - es_ * es_;
-    gn[sp.o_ap * RB + rr] = sum(2) * T(2) * ap_ * ap_ + T(1) - eap_ * eap_;
-    gn[sp.o_ar * RB + rr] = sum(5) * T(2) * are_ * are_ + T(1) - ear_ * ear_;
-    gn[sp.o_ai * RB + rr] = sum(6) * T(2) * aim_ * aim_ + T(1) - eai_ * eai_;
-  }
-  __syncthreads();
-}
-
-template <typename T, int RB>
-__global__ void __launch_bounds__(NT) traj_kernel(Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const Spec& sp = a.sp;
-  const int D = sp.D, n2 = 2 * sp.n;
-  const Smem L = smem_layout<RB>(D, sp.K, sp.n);
-  T* q = sm + L.q; T* p = sm + L.p; T* g = sm + L.g;
-  T* qn = sm + L.qn; T* pn = sm + L.pn; T* gn = sm + L.gn;
-  T* pq = sm + L.pq; T* pg = sm + L.pg; T* minv = sm + L.minv;
-  T* rs = sm + L.rs;
-  const int tid = threadIdx.x, r = tid % RB, i0 = tid / RB;
-  constexpr int SR = NT / RB;
-  const int row0 = blockIdx.x * RB;
-  // rows past R (ragged last block) duplicate row R-1 and are not stored
-  auto grow = [&](int rr) { return min(row0 + rr, a.R - 1); };
-
-  for (int e = tid; e < RB * D; e += NT) {
-    const int rr = e / D, d = e % D;
-    const size_t gi = (size_t)grow(rr) * D + d;
-    const T qv = a.q[gi], gv = a.g[gi];
-    q[d * RB + rr] = qv;
-    p[d * RB + rr] = -a.p0[gi];
-    g[d * RB + rr] = gv;
-    pq[d * RB + rr] = qv;
-    pg[d * RB + rr] = gv;
-    minv[d * RB + rr] = a.minv[gi];
-  }
-  for (int e = tid; e < RB * n2; e += NT) {
-    const int rr = e / n2, t = e % n2;
-    sm[L.tgt + t * RB + rr] = a.tgt[(size_t)grow(rr) * n2 + t];
-  }
-  __syncthreads();
+  // the start point: kinetic energy, and the initial proposal (weight 1)
   {
-    T kp[1] = {T(0)};
-    for (int i = i0; i < D; i += SR) {
-      const T pv = p[i * RB + r];
-      kp[0] += pv * pv * minv[i * RB + r];
+    T kp = T(0);
+#pragma unroll
+    for (int c = 0; c < SLOTS; ++c) {
+      const int i = s + LPR * c;
+      if (i < K) {
+        for (int h = 0; h < 2; ++h) {
+          const size_t d = rb + (h ? sp.o_x : sp.o_u) + i;
+          const T pv = a.p0[d];
+          kp += pv * pv * a.minv[d];
+          if (store) { a.q_out[d] = a.q[d]; a.g_out[d] = a.g[d]; }
+        }
+      }
     }
-    block_reduce<T, RB, 1>(kp, sm + L.red, rs + S_KIN * RB);
+    if (s == 0) {
+#pragma unroll
+      for (int m = 0; m < 9; ++m) {
+        const size_t d = rb + so[m];
+        const T pv = a.p0[d];
+        smv[m * RB + r] = a.minv[d];
+        kp += pv * pv * smv[m * RB + r];
+        if (store) { a.q_out[d] = a.q[d]; a.g_out[d] = a.g[d]; }
+      }
+    }
+    kp = row_sum<LPR>(kp);
+    const T lp0 = a.logp[gr], kin0 = T(0.5) * kp;
+    H0 = -lp0 + kin0;
+    plp = lp0;
+    pkin = kin0;
   }
-  if (tid < RB) {
-    const int gr = grow(tid);
-    const T lp0 = a.logp[gr], kin0 = T(0.5) * rs[S_KIN * RB + tid];
-    rs[S_LP * RB + tid] = lp0;
-    rs[S_LP0 * RB + tid] = lp0;
-    rs[S_H0 * RB + tid] = -lp0 + kin0;
-    rs[S_EPS * RB + tid] = a.eps[gr];
-    rs[S_LOGW * RB + tid] = T(0);
-    rs[S_PLP * RB + tid] = lp0;
-    rs[S_PKIN * RB + tid] = kin0;
-    rs[S_SACC * RB + tid] = T(0);
-    rs[S_DEAD * RB + tid] = T(0);
-    rs[S_EVER * RB + tid] = T(0);
-  }
-  __syncthreads();
+  issue<C, true>(a, 0, stage, SE);
+  issue<C, true>(a, 1, stage, SE);
 
-  for (int it = 0; it < a.n_leap; ++it) {
-    if (it == a.j) {
-      // the forward leg restarts from the initial point with +p0
-      for (int e = tid; e < RB * D; e += NT) {
-        const int rr = e / D, d = e % D;
-        const size_t gi = (size_t)grow(rr) * D + d;
-        q[d * RB + rr] = a.q[gi];
-        p[d * RB + rr] = a.p0[gi];
-        g[d * RB + rr] = a.g[gi];
+  for (int step = 0; step < a.n_leap; ++step) {
+    __syncwarp();
+    // ---- restart a leg: the backward leg from -p0 at step 0 (unless j is
+    // 0), the forward leg from +p0 at step j; then the first half step ----
+    if (step == 0 || step == a.j) {
+      const T sg = step == a.j ? T(1) : T(-1);
+#pragma unroll
+      for (int c = 0; c < SLOTS; ++c) {
+        const int i = s + LPR * c;
+        if (i < K) {
+          const size_t du = rb + sp.o_u + i, dx = rb + sp.o_x + i;
+          qu[c] = a.q[du];
+          qx[c] = a.q[dx];
+          pu[c] = sg * a.p0[du] + he * a.g[du];
+          px[c] = sg * a.p0[dx] + he * a.g[dx];
+        }
       }
-      if (tid < RB) {
-        rs[S_LP * RB + tid] = rs[S_LP0 * RB + tid];
-        rs[S_DEAD * RB + tid] = T(0);
+      if (s == 0) {
+#pragma unroll
+        for (int m = 0; m < 9; ++m) {
+          const size_t d = rb + so[m];
+          sq[m * RB + r] = a.q[d];
+          spm[m * RB + r] = sg * a.p0[d] + he * a.g[d];
+        }
       }
-      __syncthreads();
+      dead = false;
     }
-    const T eps = rs[S_EPS * RB + r];
-    for (int i = i0; i < D; i += SR) {
-      const int x = i * RB + r;
-      const T ph = p[x] + T(0.5) * eps * g[x];
-      pn[x] = ph;
-      qn[x] = q[x] + eps * ph * minv[x];
+
+    // ---- drift, then ups and x_raw for the forward product ----
+#pragma unroll
+    for (int c = 0; c < SLOTS; ++c) {
+      const int i = s + LPR * c;
+      if (i < K && !dead) {
+        qu[c] = qu[c] + eps * pu[c] * __ldg(a.minv + rb + sp.o_u + i);
+        qx[c] = qx[c] + eps * px[c] * __ldg(a.minv + rb + sp.o_x + i);
+        const T up = dexp(qu[c]) * T(0.15);
+        const T base = nonneg ? dexp(qx[c]) : qx[c];
+        ups[i * XS + r] = up;
+        xg[i * XS + r] = ncp ? base * up : base;
+      }
+    }
+    if (s == 0 && !dead) {
+#pragma unroll
+      for (int m = 0; m < 9; ++m) {
+        const T qv = sq[m * RB + r] + eps * spm[m * RB + r] * smv[m * RB + r];
+        sq[m * RB + r] = qv;
+        rsc[m * RB + r] = dexp(qv);
+      }
+    }
+
+    // ---- P = W x_raw: pred (before scale and offsets) and L_m x_raw ----
+    for (int ps = 0; ps < (PS ? L.npF : 1); ++ps) {
+      const int c0 = PS ? ps * L.pf : 0;
+      const int w = PS ? min(L.pf, L.OP - c0) : L.OP;
+      const bool on = ot < w / 8;
+      T acc[8][TR];
+#pragma unroll
+      for (int o = 0; o < 8; ++o)
+#pragma unroll
+        for (int q = 0; q < TR; ++q) acc[o][q] = T(0);
+      for (int c = 0; c < L.nF; ++c) {
+        const int g = ps * L.nF + c;
+        cp_wait1();
+        __syncthreads();
+        issue<C, true>(a, g + 2, stage, SE);
+        if (on) {
+          const T* S = stage + (g % 3) * L.SE;
+          const int k0 = c * L.KC, nk = min(L.KC, K - k0);
+          for (int kk = 0; kk < nk; ++kk) {
+            T m[8], x[TR];
+            ldv<4>(S + kk * w + 4 * ot, m);
+            ldv<4>(S + kk * w + w / 2 + 4 * ot, m + 4);
+            ldv<TR>(xg + (k0 + kk) * XS + TR * rt, x);
+#pragma unroll
+            for (int o = 0; o < 8; ++o)
+#pragma unroll
+              for (int q = 0; q < TR; ++q) acc[o][q] = dfma(m[o], x[q], acc[o][q]);
+          }
+        }
+      }
+      if (on) {
+#pragma unroll
+        for (int o = 0; o < 8; ++o) {
+          const int oo = c0 + (o < 4 ? 0 : w / 2) + 4 * ot + (o & 3);
+          stv<TR>(py + oo * XS + TR * rt, acc[o]);
+        }
+      }
     }
     __syncthreads();
-    value_and_grad<T, RB>(a, L, sm);
-    {
-      T kp[1] = {T(0)};
-      for (int i = i0; i < D; i += SR) {
-        const int x = i * RB + r;
-        const T pv = pn[x] + T(0.5) * eps * gn[x];
-        pn[x] = pv;
-        kp[0] += pv * pv * minv[x];
+    issue<C, false>(a, 0, stage, SE);
+    issue<C, false>(a, 1, stage, SE);
+
+    // ---- likelihood and q-penalty; P becomes y in place ----
+    T part[NSUM];
+#pragma unroll
+    for (int i = 0; i < NSUM; ++i) part[i] = T(0);
+    const T er = rsc[0 * RB + r], eai = rsc[1 * RB + r];
+    const T eap = rsc[2 * RB + r], ear = rsc[3 * RB + r];
+    const T ei = rsc[4 * RB + r], es = rsc[5 * RB + r];
+    const T ds0 = rsc[6 * RB + r], ds1 = rsc[7 * RB + r];
+    const T ds2 = rsc[8 * RB + r];
+    const T rinf = er * T(100), induc = ei * induc_scale;
+    const T sres = es * T(0.05), a_p = eap * T(0.05);
+    const T a_re = ear * T(0.05), a_im = eai * T(0.05);
+    for (int tm = dead ? n : s; tm < n; tm += LPR) {
+      // the real (tm) and imaginary (tm + n) points share a variance term
+      const int tt[2] = {tm, tm + n};
+      T pr[2], w[2], gl[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        pr[h] = py[tt[h] * XS + r] * xs + rinf * rv[tt[h]] + induc * iv[tt[h]];
+      const T e2 = a_re * pr[0], e3 = a_im * pr[1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = tt[h];
+        const T e1 = a_p * pr[h];
+        const T var = smin * smin + sres * sres + e1 * e1 + e2 * e2 + e3 * e3;
+        const T resid = __ldg(a.tgt + (size_t)gr * n2 + t) - pr[h];
+        const T ivar = T(1) / var;
+        const T m = mask[t];
+        part[0] += m * (T(-0.5) * resid * resid * ivar - T(0.5) * dlog(var) - LS2P);
+        w[h] = m * T(0.5) * (resid * resid * ivar - T(1)) * ivar;
+        gl[h] = m * resid * ivar;
+        part[1] += w[h];
+        part[2] += w[h] * pr[h] * pr[h];
       }
-      block_reduce<T, RB, 1>(kp, sm + L.red, rs + S_KIN * RB);
+      const T ws = w[0] + w[1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = tt[h];
+        const T aa = h ? a_im : a_re;
+        const T gpv = gl[h] + w[h] * (T(2) * (a_p * a_p) * pr[h])
+                      + T(2) * (aa * aa) * pr[h] * ws;
+        part[3] += gpv * rv[t];
+        part[4] += gpv * iv[t];
+        py[t * XS + r] = xs * gpv;
+      }
+      part[5] += ws * pr[0] * pr[0];
+      part[6] += ws * pr[1] * pr[1];
     }
-    if (tid < RB) {
-      const int rr = tid;
-      const T kin = T(0.5) * rs[S_KIN * RB + rr];
-      const T lpn = rs[S_LPN * RB + rr];
-      const T Hn = -lpn + kin;
-      const T H0 = rs[S_H0 * RB + rr];
+#pragma unroll
+    for (int c = 0; c < SLOTS; ++c) {
+      const int i = s + LPR * c;
+      if (i < K && !dead) {
+        const T up = ups[i * XS + r];
+        const T iu2 = T(1) / (up * up);
+        T* l = py + (n2 + i) * XS + r;
+        const T l0 = l[0], l1 = l[K * XS], l2 = l[2 * K * XS];
+        const T S = ds0 * l0 * l0 + ds1 * l1 * l1 + ds2 * l2 * l2;
+        part[7] += T(-0.5) * S * iu2 - qu[c] - (LOG15 + LS2P);
+        part[8] += l0 * l0 * iu2;
+        part[9] += l1 * l1 * iu2;
+        part[10] += l2 * l2 * iu2;
+        sus[i * XS + r] = S * iu2;
+        l[0] = -ds0 * l0 * iu2;
+        l[K * XS] = -ds1 * l1 * iu2;
+        l[2 * K * XS] = -ds2 * l2 * iu2;
+      }
+    }
+
+    // ---- g_x = W^T y ----
+    for (int ps = 0; ps < (PS ? L.npB : 1); ++ps) {
+      const int c0 = PS ? ps * L.pb : 0;
+      const int w = PS ? min(L.pb, L.KP - c0) : L.KP;
+      const bool on = it < w / 8;
+      T acc[8][TR];
+#pragma unroll
+      for (int o = 0; o < 8; ++o)
+#pragma unroll
+        for (int q = 0; q < TR; ++q) acc[o][q] = T(0);
+      for (int c = 0; c < L.nB; ++c) {
+        const int g = ps * L.nB + c;
+        cp_wait1();
+        __syncthreads();
+        issue<C, false>(a, g + 2, stage, SE);
+        if (on) {
+          const T* S = stage + (g % 3) * L.SE;
+          const int o0 = c * L.OC, no = min(L.OC, L.OV - o0);
+          for (int oo = hb; oo < no; oo += 4) {
+            T m[8], y[TR];
+            ldv<4>(S + oo * w + 4 * it, m);
+            ldv<4>(S + oo * w + w / 2 + 4 * it, m + 4);
+            ldv<TR>(py + (o0 + oo) * XS + TR * rt, y);
+#pragma unroll
+            for (int o = 0; o < 8; ++o)
+#pragma unroll
+              for (int q = 0; q < TR; ++q) acc[o][q] = dfma(m[o], y[q], acc[o][q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < 8; ++o)
+#pragma unroll
+        for (int q = 0; q < TR; ++q) {
+          acc[o][q] += __shfl_xor_sync(FULL, acc[o][q], 1);
+          acc[o][q] += __shfl_xor_sync(FULL, acc[o][q], 2);
+        }
+      if (on && hb == 0) {
+#pragma unroll
+        for (int o = 0; o < 8; ++o) {
+          const int i = c0 + (o < 4 ? 0 : w / 2) + 4 * it + (o & 3);
+          stv<TR>(xg + i * XS + TR * rt, acc[o]);
+        }
+      }
+    }
+    __syncthreads();
+    if (step + 1 < a.n_leap) {
+      issue<C, true>(a, 0, stage, SE);
+      issue<C, true>(a, 1, stage, SE);
+    }
+
+    // ---- ups and coefficient gradients, the kick, kinetic energy ----
+    // dups(b) couples ups[b], ups[b+1], ups[b+2] for b in [0, K-2): each
+    // window's weight on its outer members (rows [0, KP) of P, free after
+    // the transpose) and on its middle one (rows [KP, 2 KP))
+#pragma unroll
+    for (int c = 0; c < SLOTS; ++c) {
+      const int b = s + LPR * c;
+      if (b < K - 2 && !dead) {
+        const T aw = ups[b * XS + r], cw = ups[(b + 1) * XS + r];
+        const T bw = ups[(b + 2) * XS + r];
+        const T dups = T(0.5) * (cw - T(0.5) * (aw + bw)) / cw;
+        const T wd = -dups;
+        py[b * XS + r] = wd * (T(-0.25) / cw);
+        py[(L.KP + b) * XS + r] = wd * T(0.25) * (aw + bw) / (cw * cw);
+        part[11] += T(-0.5) * dups * dups;
+      }
+    }
+    __syncwarp();
+    T gu_[SLOTS], gv_[SLOTS];
+#pragma unroll
+    for (int c = 0; c < SLOTS; ++c) {
+      const int i = s + LPR * c;
+      gu_[c] = gv_[c] = T(0);
+      if (i < K && !dead) {
+        const T up = ups[i * XS + r];
+        const T u = qu[c], v = qx[c];
+        const T base = nonneg ? dexp(v) : v;
+        const T xraw = ncp ? base * up : base;
+        const T gxr = xg[i * XS + r];
+        const T emu = dexp(-u);
+        T gu = (sus[i * XS + r] - T(1)) - (ua + T(1)) + ub * emu + T(1);
+        if (ncp) gu += T(1) + gxr * xraw;
+        // the windows whose member 0, 1, 2 is ups[i]
+        T gud = T(0);
+        if (i <= K - 3) gud += py[i * XS + r];
+        if (i >= 1 && i <= K - 2) gud += py[(L.KP + i - 1) * XS + r];
+        if (i >= 2) gud += py[(i - 2) * XS + r];
+        gu += gud * up;
+        const T dxdv = nonneg ? xraw : (ncp ? up : T(1));
+        T gv = gxr * dxdv;
+        if (nonneg) gv += T(1);
+        // inv-gamma prior on exp(u), Jacobians of u (and v, ncp)
+        part[11] += cu - (ua + T(1)) * u - ub * emu + u;
+        if (nonneg) part[11] += v;
+        if (ncp) part[11] += u;
+        gu_[c] = gu;
+        gv_[c] = gv;
+        pu[c] = pu[c] + he * gu;
+        px[c] = px[c] + he * gv;
+        part[12] += pu[c] * pu[c] * __ldg(a.minv + rb + sp.o_u + i)
+                    + px[c] * px[c] * __ldg(a.minv + rb + sp.o_x + i);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NSUM; ++i) part[i] = row_sum<LPR>(part[i]);
+
+    // ---- per-row scalars on the row's lane 0: lp, the scalar gradients
+    // and kick, the energy and the multinomial selection ----
+    int take = 0;
+    T gs[9];
+    if (s == 0 && !dead) {
+      const T q_r = sq[0 * RB + r], q_ai = sq[1 * RB + r];
+      const T q_ap = sq[2 * RB + r], q_ar = sq[3 * RB + r];
+      const T q_iu = sq[4 * RB + r], q_sr = sq[5 * RB + r];
+      const T c5 = T(5.0 * 1.6094379124341003 - 3.1780538303479458);  // 5 log 5 - lgamma 5
+      T lp = part[0] + part[7] + part[11] - T(K - 2) * LS2P;
+      lp += T(-0.5) * (er * er + ei * ei + es * es + eap * eap
+                       + ear * ear + eai * eai) - T(6) * LS2P;
+      lp += q_r + q_ai + q_ap + q_ar + q_iu + q_sr;
+      const T dsv[3] = {ds0, ds1, ds2};
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const T d = sq[(6 + m) * RB + r];
+        const T emd = dexp(-d);
+        lp += c5 - T(6) * d - T(5) * emd + d;
+        gs[6 + m] = T(-0.5) * part[8 + m] * dsv[m] + T(1) - T(6) + T(5) * emd;
+      }
+      if (ncp) lp += T(K) * LOG15;
+      gs[0] = part[3] * rinf + T(1) - er * er;
+      gs[1] = part[6] * T(2) * a_im * a_im + T(1) - eai * eai;
+      gs[2] = part[2] * T(2) * a_p * a_p + T(1) - eap * eap;
+      gs[3] = part[5] * T(2) * a_re * a_re + T(1) - ear * ear;
+      gs[4] = part[4] * induc + T(1) - ei * ei;
+      gs[5] = part[1] * T(2) * sres * sres + T(1) - es * es;
+      T kp = part[12];
+#pragma unroll
+      for (int m = 0; m < 9; ++m) {
+        const T pv = spm[m * RB + r] + he * gs[m];
+        spm[m * RB + r] = pv;
+        kp += pv * pv * smv[m * RB + r];
+      }
+      const T kin = T(0.5) * kp;
+      const T Hn = -lp + kin;
       const bool badf = isnan(Hn) || (Hn - H0) > a.max_e;
-      const bool dead = rs[S_DEAD * RB + rr] > T(0.5);
-      const T w = (badf || dead) ? -INFINITY : H0 - Hn;
-      const T logw_new = logaddexp(rs[S_LOGW * RB + rr], w);
-      const T u = a.usel[(size_t)it * a.R + grow(rr)];
-      const bool take = dlog(u) < (w - logw_new);
+      const T w = badf ? -INFINITY : H0 - Hn;
+      const T logw_new = logaddexp(logw, w);
+      const T u = a.usel[(size_t)step * a.R + gr];
+      take = dlog(u) < (w - logw_new);
       if (take) {
-        rs[S_PLP * RB + rr] = lpn;
-        rs[S_PKIN * RB + rr] = kin;
+        plp = lp;
+        pkin = kin;
       }
-      rs[S_SACC * RB + rr] += dmin(T(1), dexp(w));
-      const bool dead_new = dead || badf;
-      if (dead_new) rs[S_EVER * RB + rr] = T(1);
-      if (!dead_new) rs[S_LP * RB + rr] = lpn;
-      rs[S_DEAD * RB + rr] = dead_new ? T(1) : T(0);
-      rs[S_TAKE * RB + rr] = take ? T(1) : T(0);
-      rs[S_ALIVE * RB + rr] = dead_new ? T(0) : T(1);
-      rs[S_LOGW * RB + rr] = logw_new;
+      sacc += dmin(T(1), dexp(w));
+      dead = badf;
+      ever = ever || dead;
+      logw = logw_new;
     }
-    __syncthreads();
-    const bool take = rs[S_TAKE * RB + r] > T(0.5);
-    const bool alive = rs[S_ALIVE * RB + r] > T(0.5);
-    for (int i = i0; i < D; i += SR) {
-      const int x = i * RB + r;
-      if (take) {
-        pq[x] = qn[x];
-        pg[x] = gn[x];
+    take = __shfl_sync(FULL, take, lead);
+    dead = __shfl_sync(FULL, (int)dead, lead) != 0;
+    if (take && store) {
+#pragma unroll
+      for (int c = 0; c < SLOTS; ++c) {
+        const int i = s + LPR * c;
+        if (i < K) {
+          a.q_out[rb + sp.o_u + i] = qu[c];
+          a.q_out[rb + sp.o_x + i] = qx[c];
+          a.g_out[rb + sp.o_u + i] = gu_[c];
+          a.g_out[rb + sp.o_x + i] = gv_[c];
+        }
       }
-      if (alive) {
-        q[x] = qn[x];
-        p[x] = pn[x];
-        g[x] = gn[x];
+      if (s == 0) {
+#pragma unroll
+        for (int m = 0; m < 9; ++m) {
+          a.q_out[rb + so[m]] = sq[m * RB + r];
+          a.g_out[rb + so[m]] = gs[m];
+        }
       }
     }
-    __syncthreads();
+    // the next leaf's first half step (a restart overrides it)
+#pragma unroll
+    for (int c = 0; c < SLOTS; ++c) {
+      pu[c] = pu[c] + he * gu_[c];
+      px[c] = px[c] + he * gv_[c];
+    }
+    if (s == 0 && !dead) {
+#pragma unroll
+      for (int m = 0; m < 9; ++m) spm[m * RB + r] += he * gs[m];
+    }
   }
 
-  for (int e = tid; e < RB * D; e += NT) {
-    const int rr = e / D, d = e % D;
-    if (row0 + rr >= a.R) continue;
-    const size_t gi = (size_t)(row0 + rr) * D + d;
-    a.q_out[gi] = pq[d * RB + rr];
-    a.g_out[gi] = pg[d * RB + rr];
-  }
-  if (tid < RB && row0 + tid < a.R) {
-    T* o = a.rs_out + row0 + tid;
-    o[0] = rs[S_PLP * RB + tid];
-    o[a.R] = rs[S_PKIN * RB + tid];
-    o[2 * a.R] = rs[S_SACC * RB + tid];
-    o[3 * a.R] = rs[S_EVER * RB + tid];
+  if (s == 0 && store) {
+    T* o = a.rs_out + gr;
+    o[0] = plp;
+    o[a.R] = pkin;
+    o[2 * a.R] = sacc;
+    o[3 * a.R] = ever ? T(1) : T(0);
   }
 }
 
-template <typename T, int RB>
+// Launch with tile C if it holds K and fits the card's shared memory with
+// stages of at least one row; else SHAPE_UNSUPPORTED
+template <class C, typename T>
+int run(Args<T> a, cudaStream_t stream) {
+  if (a.sp.K > C::KMAX) return SHAPE_UNSUPPORTED;
+  int dev = 0, smax = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smax, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  Lay L;
+  for (int b = STAGE_MAX;; b /= 2) {
+    L = layout<C>(a.sp, b / (int)sizeof(T));
+    if (L.SE < L.pf || L.SE < L.pb) return SHAPE_UNSUPPORTED;
+    if ((size_t)L.total * sizeof(T) <= (size_t)smax) break;
+    if (!C::PASSES) return SHAPE_UNSUPPORTED;
+  }
+  if (!C::PASSES && (L.npF > 1 || L.npB > 1)) return SHAPE_UNSUPPORTED;
+  a.L = L;
+  const size_t bytes = (size_t)L.total * sizeof(T);
+  err = cudaFuncSetAttribute(traj_kernel<T, C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.R + C::RB - 1) / C::RB;
+  traj_kernel<T, C><<<blocks, C::NT, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, class Main, class MainP, class Wide>
 int launch(const void* q, const void* p0, const void* g, const void* logp,
            const void* eps, const void* minv, const void* tgt,
-           const void* usel, const void* A, const void* AT, const void* Lm,
-           const void* LT, const void* vecs, const void* scal,
-           const int* spec, int R, int n_leap, int j, double max_e,
-           void* q_out, void* g_out, void* rs_out, void* stream) {
+           const void* usel, const void* W, const void* WT, const void* vecs,
+           const void* scal, const int* spec, int R, int n_leap, int j,
+           double max_e, void* q_out, void* g_out, void* rs_out,
+           void* stream) {
   Args<T> a;
   a.q = (const T*)q; a.p0 = (const T*)p0; a.g = (const T*)g;
   a.logp = (const T*)logp; a.eps = (const T*)eps; a.minv = (const T*)minv;
-  a.tgt = (const T*)tgt; a.usel = (const T*)usel; a.A = (const T*)A;
-  a.AT = (const T*)AT; a.L = (const T*)Lm; a.LT = (const T*)LT;
-  a.vecs = (const T*)vecs; a.scal = (const T*)scal;
+  a.tgt = (const T*)tgt; a.usel = (const T*)usel; a.W = (const T*)W;
+  a.WT = (const T*)WT; a.vecs = (const T*)vecs; a.scal = (const T*)scal;
   a.q_out = (T*)q_out; a.g_out = (T*)g_out; a.rs_out = (T*)rs_out;
   a.sp = Spec{spec[0], spec[1], spec[2], spec[3], spec[4], spec[5], spec[6],
               spec[7], spec[8], spec[9], spec[10], spec[11], spec[12],
-              spec[13]};
+              spec[13], spec[14], spec[15]};
   a.R = R; a.n_leap = n_leap; a.j = j; a.max_e = (T)max_e;
-  const Smem L = smem_layout<RB>(a.sp.D, a.sp.K, a.sp.n);
-  const size_t bytes = (size_t)L.total * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      traj_kernel<T, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (R + RB - 1) / RB;
-  traj_kernel<T, RB><<<blocks, NT, bytes, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const Spec& s = a.sp;
+  // W's layout (shmc_flat.stacked_shape): the dups weights borrow 2 KP
+  // rows of the stacked product
+  if (s.OP % 8 || s.KP % 8 || s.OP < 2 * s.n + 3 * s.K || s.KP < s.K
+      || s.OP < 2 * s.KP)
+    return (int)cudaErrorInvalidValue;
+  int err = run<Main>(a, (cudaStream_t)stream);
+  if (err == SHAPE_UNSUPPORTED) err = run<MainP>(a, (cudaStream_t)stream);
+  if (err == SHAPE_UNSUPPORTED) err = run<Wide>(a, (cudaStream_t)stream);
+  return err;
 }
+
+using F32Main = Cfg<float, 512, 32, 8, false>;
+using F32MainP = Cfg<float, 512, 32, 8, true>;
+using F32Wide = Cfg<float, 256, 8, 9, true>;
+using F64Main = Cfg<double, 512, 16, 4, false>;
+using F64MainP = Cfg<double, 512, 16, 4, true>;
+using F64Wide = Cfg<double, 256, 8, 9, true>;
 
 }  // namespace
 
 #define TRAJ_ARGS                                                          \
   const void *q, const void *p0, const void *g, const void *logp,          \
       const void *eps, const void *minv, const void *tgt, const void *usel, \
-      const void *A, const void *AT, const void *L, const void *LT,        \
-      const void *vecs, const void *scal, const int *spec, int R,          \
-      int n_leap, int j, double max_e, void *q_out, void *g_out,           \
-      void *rs_out, void *stream
-#define TRAJ_PASS                                                           \
-  q, p0, g, logp, eps, minv, tgt, usel, A, AT, L, LT, vecs, scal, spec, R, \
+      const void *W, const void *WT, const void *vecs, const void *scal,   \
+      const int *spec, int R, int n_leap, int j, double max_e,             \
+      void *q_out, void *g_out, void *rs_out, void *stream
+#define TRAJ_PASS                                                        \
+  q, p0, g, logp, eps, minv, tgt, usel, W, WT, vecs, scal, spec, R,      \
       n_leap, j, max_e, q_out, g_out, rs_out, stream
 
-extern "C" int traj_f32(TRAJ_ARGS) { return launch<float, 8>(TRAJ_PASS); }
-extern "C" int traj_f64(TRAJ_ARGS) { return launch<double, 4>(TRAJ_PASS); }
+extern "C" int traj_f32(TRAJ_ARGS) {
+  return launch<float, F32Main, F32MainP, F32Wide>(TRAJ_PASS);
+}
+extern "C" int traj_f64(TRAJ_ARGS) {
+  return launch<double, F64Main, F64MainP, F64Wide>(TRAJ_PASS);
+}

@@ -3,11 +3,12 @@ kernel (port of bayes_drt_tpu/infer/shmc_flat.py).
 
 The batch of B spectra x C chains runs as one (B*C, D) chain axis. Each
 draw's whole n-leapfrog trajectory is one launch of csrc/traj.cu, which
-keeps the chain state in shared memory. The kernel needs the posterior's
-value and gradient written out by hand; that is tractable for the single
-series-DRT model (the Stan ``Series``/``Series_pos`` model), centered or
-non-centered. ``flat_value_and_grad`` is that hand-written form in plain
-torch, held to autograd of models/posterior.log_density by the tests;
+keeps each row's state in registers and shared memory. The kernel needs
+the posterior's value and gradient written out by hand; that is
+tractable for the single series-DRT model (the Stan
+``Series``/``Series_pos`` model), centered or non-centered.
+``flat_value_and_grad`` is that hand-written form in plain torch, held to
+autograd of models/posterior.log_density by the tests;
 ``_traj_plain`` is the plain trajectory the kernel is held to.
 """
 
@@ -79,23 +80,45 @@ def flat_spec_for(cfg, data) -> FlatSpec:
 
 
 class FlatShared(NamedTuple):
-    """Numeric inputs shared by every spectrum of the batch, with the
-    transposed layouts the trajectory kernel reads (built once per fit by
-    ``make_flat_shared``)."""
+    """Numeric inputs shared by every spectrum of the batch, in the
+    stacked layout the trajectory kernel reads (built once per fit by
+    ``make_flat_shared``); ``A`` and ``L`` are views into ``W``."""
     A: torch.Tensor     # (2n, K) stacked design matrix
-    L: torch.Tensor     # (3, K, K) mode-scaled derivative matrices
     vecs: torch.Tensor  # (3, 2n): rinf_vec, induc_vec, lik_mask
     scal: torch.Tensor  # (8,): sigma_min, ups_alpha, ups_beta, induc_scale,
                         #       x_scale, ups_lognorm, 0, 0 (ups_lognorm is
                         #       the inv-gamma normalizer a*log(b)-lgamma(a))
-    AT: torch.Tensor    # (K, 2n) A transposed, contiguous
-    LT: torch.Tensor    # (3, K, K) each L transposed, contiguous
+    W: torch.Tensor     # (OP, KP): rows [A; L0; L1; L2], zero padded
+    WT: torch.Tensor    # (KP, OP): W transposed, contiguous
+
+    @property
+    def L(self) -> torch.Tensor:
+        """(3, K, K) mode-scaled derivative matrices."""
+        n2, K = self.A.shape
+        return self.W[n2:n2 + 3 * K, :K].view(3, K, K)
+
+
+def _round8(x: int) -> int:
+    return (x + 7) // 8 * 8
+
+
+def stacked_shape(n: int, K: int):
+    """(OP, KP) of the kernel's stacked matrix W: 2n + 3K rows and K
+    columns, each padded to a multiple of 8 (the kernel's tiles read W in
+    runs of four and split it in halves), and at least 2 KP rows (the
+    kernel keeps the dups weights in two KP-row blocks of the product)."""
+    kp = _round8(K)
+    return max(_round8(2 * n + 3 * K), 2 * kp), kp
 
 
 def make_flat_shared(A, L, vecs, scal) -> FlatShared:
-    return FlatShared(A=A.contiguous(), L=L.contiguous(),
-                      vecs=vecs.contiguous(), scal=scal.contiguous(),
-                      AT=A.T.contiguous(), LT=L.transpose(1, 2).contiguous())
+    n2, K = A.shape
+    op, kp = stacked_shape(n2 // 2, K)
+    W = A.new_zeros((op, kp))
+    W[:n2, :K] = A
+    W[n2:n2 + 3 * K, :K] = L.reshape(3 * K, K)
+    return FlatShared(A=W[:n2, :K], vecs=vecs.contiguous(),
+                      scal=scal.contiguous(), W=W, WT=W.T.contiguous())
 
 
 def flat_shared_for(cfg, data, dtype) -> FlatShared:
@@ -338,8 +361,13 @@ def _spec_ints(spec: FlatSpec):
     vals = (spec.K, spec.n, spec.D, int(spec.ncp), int(spec.nonneg),
             spec.off_rinf, spec.off_alpha_im, spec.off_alpha_prop,
             spec.off_alpha_re, spec.off_d, spec.off_induc,
-            spec.off_sigma_res, spec.off_ups, spec.off_x)
+            spec.off_sigma_res, spec.off_ups, spec.off_x,
+            *stacked_shape(spec.n, spec.K))
     return (ctypes.c_int * len(vals))(*vals)
+
+
+# what csrc/traj.cu returns when none of its tiles holds the shape
+_SHAPE_UNSUPPORTED = -1
 
 
 def _launch_traj(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
@@ -349,15 +377,13 @@ def _launch_traj(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
         raise TypeError(f"traj_fused takes float32 or float64, got {dt}")
     R, D = q.shape
     n2 = 2 * spec.n
+    op, kp = stacked_shape(spec.n, spec.K)
     shapes = {"q": (q, (R, D)), "p0": (p0, (R, D)), "grad": (grad, (R, D)),
               "logp": (logp, (R,)), "eps": (eps, (R,)),
               "m_inv_rows": (m_inv_rows, (R, D)),
               "targets": (targets, (R, n2)), "u_sel": (u_sel, (n_leap, R)),
-              "A": (shared.A, (n2, spec.K)),
-              "L": (shared.L, (3, spec.K, spec.K)),
               "vecs": (shared.vecs, (3, n2)), "scal": (shared.scal, (8,)),
-              "AT": (shared.AT, (spec.K, n2)),
-              "LT": (shared.LT, (3, spec.K, spec.K))}
+              "W": (shared.W, (op, kp)), "WT": (shared.WT, (kp, op))}
     for name, (t, shape) in shapes.items():
         if t.device != dev or t.dtype != dt:
             raise ValueError(f"{name} must be {dt} on {dev}, got "
@@ -379,13 +405,15 @@ def _launch_traj(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), p0.data_ptr(), grad.data_ptr(),
                     logp.data_ptr(), eps.data_ptr(), m_inv_rows.data_ptr(),
-                    targets.data_ptr(), u_sel.data_ptr(), shared.A.data_ptr(),
-                    shared.AT.data_ptr(), shared.L.data_ptr(),
-                    shared.LT.data_ptr(),
-                    shared.vecs.data_ptr(), shared.scal.data_ptr(),
+                    targets.data_ptr(), u_sel.data_ptr(), shared.W.data_ptr(),
+                    shared.WT.data_ptr(), shared.vecs.data_ptr(),
+                    shared.scal.data_ptr(),
                     ctypes.addressof(spec_arr), R, n_leap, int(j),
                     float(max_e), q_out.data_ptr(), g_out.data_ptr(),
                     rs_out.data_ptr(), stream)
+    if status == _SHAPE_UNSUPPORTED:
+        raise ValueError(f"traj_fused: no tile of csrc/traj.cu holds K="
+                         f"{spec.K}, n={spec.n} in {dt} on this card")
     _build.check(status, "traj_fused")
     traj_fused.launches += 1
     return (q_out, rs_out[0], g_out, rs_out[1], rs_out[2], rs_out[3] > 0.5)

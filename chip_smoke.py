@@ -9,7 +9,11 @@ line is printed):
   2. the quadrature kernel (csrc/quad.cu) against its plain version at
      N=81, K=101, real and imaginary parts, Q=1000 and 1024.
   3. the trajectory kernel (csrc/traj.cu) against the plain trajectory at
-     R=4096 rows, D=211, n_leap=32 in float64 from random-init rows.
+     R=4096 rows, D=211, n_leap=32 in float64 from random-init rows, and
+     at a ragged R=4092, j=0 and j=n_leap; then on longer sweeps that
+     need two output passes, smaller stages, the main tile's edge
+     (2n + 3K = 507 of 512, K = 121) and the wide tile (K = 141), the
+     last in float64 and float32.
   4. the main path: fit_spectra_batch on B=1024 noisy ZARC spectra,
      4 chains x (150 warmup + 250 draws), SHMC n_steps=32, float32, with
      the five quality gates of the JAX package's bench and the launch
@@ -18,6 +22,8 @@ line is printed):
      main path's final sampler states, and its time per launch.
   6. one JSON line listing both kernels with their launches and times.
 The last line of stdout is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --check-only   # phases 1-3, then stop
 """
 
 import json
@@ -44,6 +50,20 @@ GATE_LOGP_RHAT = 4.0      # median per-spectrum logp split-Rhat
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_FP64_S = 34e12
+# fp64-pipe instructions per quadrature node, estimated from the
+# algorithms rather than read from the binary: about 17 for exp (range
+# reduction, a degree-11 polynomial, rebuilding the exponent, the
+# special-value test), about 8 for the IEEE divide (Newton steps on a
+# reciprocal estimate, the quotient and its correction), and about 5
+# adds and multiply-adds around them
+QUAD_FP64_PER_NODE = 30
+# frequency grids of the shape cases of phase 3: (n, K) = (91, 111) and
+# (101, 121) need two output passes of the forward product, the second
+# also smaller stages in float64; (72, 121) is the main tile's edge (one
+# 512-row pass, 226.5 KB of shared memory in float64); (121, 141) runs on
+# the wide tile
+SWEEPS = {"n91_K111": (6, -3, 91), "n101_K121": (7, -3, 101),
+          "n72_K121": (7, -3, 72), "n121_K141": (8, -4, 121)}
 
 
 def card_line():
@@ -110,23 +130,30 @@ def phase_quad(card):
     plain_ms = cuda_ms(lambda: drt_quad_plain(s64, y, phiw, "imag"), 20)
     n, k = s64.shape
     q = y.numel()
-    # bound: the weighted sum alone is one FMA (2 flops) per node and output
-    ops_s = 2.0 * n * k * q / PEAK_FP64_S
+    # bound: every node's exp, divide and adds as fp64-pipe instructions,
+    # at one instruction per fp64 unit and clock (half the FMA flop rate)
+    ops_s = n * k * q * QUAD_FP64_PER_NODE / (PEAK_FP64_S / 2)
     bytes_s = 8.0 * (2 * n * k + 2 * q) / PEAK_BYTES_S
+    bound_ms = 1e3 * max(ops_s, bytes_s)
     print(f"quad: f64 within rtol 1e-10, f32 within rtol 2e-4/atol 1e-5 of "
           f"f64 (Q=1000 and 1024); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms per call at N={n} K={k} Q={q} float64 [{card}]")
+          f" ms per call at N={n} K={k} Q={q} float64; bound "
+          f"{bound_ms:.4f} ms ({QUAD_FP64_PER_NODE} fp64 instructions per "
+          f"node, estimated), kernel at {100 * bound_ms / ms:.1f}% of it "
+          f"[{card}]")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
-                bound_ms=1e3 * max(ops_s, bytes_s),
+                bound_ms=bound_ms,
                 bound_by="operations" if ops_s >= bytes_s else "bytes")
 
 
-def traj_inputs(dtype, state=None, R=B * CHAINS, n_leap=N_STEPS, seed=0):
-    """Rows of the main path's posterior with targets from the bench batch.
-    Without ``state``, q comes from the port's init and eps and the metric
-    from a numpy seed; with ``state`` (the main path's final positions,
-    metric and step sizes) the rows sit where the sampler runs. p0, u_sel
-    and j always come from the numpy seed."""
+def traj_inputs(dtype, state=None, R=B * CHAINS, n_leap=N_STEPS, seed=0,
+                j=None, freq=None):
+    """Rows of the main path's posterior with targets from the bench batch
+    (on ``freq``, by default the bench's 81 points). Without ``state``, q
+    comes from the port's init and eps and the metric from a numpy seed;
+    with ``state`` (the main path's final positions, metric and step
+    sizes) the rows sit where the sampler runs. p0, u_sel and j (unless
+    given) come from the numpy seed."""
     import torch
     from bayes_drt_tpu_torch import sim
     from bayes_drt_tpu_torch.infer.shmc_flat import (flat_shared_for,
@@ -136,7 +163,7 @@ def traj_inputs(dtype, state=None, R=B * CHAINS, n_leap=N_STEPS, seed=0):
     from bayes_drt_tpu_torch.models.posterior import (init_unconstrained,
                                                       ravel)
     from bayes_drt_tpu_torch.parallel.batch import _build_shared
-    freq, Zb = sim.make_benchmark_batch(R // CHAINS, seed=0)
+    freq, Zb = sim.make_benchmark_batch(R // CHAINS, freq=freq, seed=0)
     _, _, _, cfg, data = _build_shared(freq, ncp=True, dtype=dtype,
                                        device="cuda")
     spec = flat_spec_for(cfg, data)
@@ -165,27 +192,107 @@ def traj_inputs(dtype, state=None, R=B * CHAINS, n_leap=N_STEPS, seed=0):
     lp, g = flat_value_and_grad(spec, sh.A, sh.L, sh.vecs, sh.scal, q, tgt)
     p0 = t(rng.standard_normal((R, spec.D))) / torch.sqrt(m_inv)
     u_sel = t(rng.uniform(size=(n_leap, R)))
-    j = int(rng.integers(0, n_leap + 1))
+    j_seed = int(rng.integers(0, n_leap + 1))
+    j = j_seed if j is None else j
     return (spec, n_leap, 1000.0, sh, q, p0.contiguous(), g.contiguous(),
             lp.contiguous(), eps, m_inv, tgt, j, u_sel)
 
 
-def phase_traj_f64():
+def phase_traj_f64(card):
     """The kernel against the plain trajectory in float64 from random-init
-    rows: every output within rtol 1e-9 (no selection flips in float64)."""
+    rows: every output within rtol 1e-9 (no selection flips in float64).
+    Cases: the main path's R with the seed's split j; a ragged R (4,092
+    rows, not a multiple of the rows a block); j = 0 (no backward leg);
+    j = n_leap (no forward leg); the SWEEPS shapes, the wide tile's with a
+    ragged R. Then the wide tile in float32, every live leaf taken, and
+    the float32 times of the two-pass and wide tiles."""
     import torch
     from bayes_drt_tpu_torch.infer.shmc_flat import _traj_plain, traj_fused
-    args = traj_inputs(torch.float64)
+    R = B * CHAINS
+    cases = [(R, None, None), (R - CHAINS, None, None), (R, 0, None),
+             (R, N_STEPS, None)]
+    cases += [(R - CHAINS if name == "n121_K141" else R, None,
+               np.logspace(*grid)) for name, grid in SWEEPS.items()]
+    for rows, j, freq in cases:
+        args = traj_inputs(torch.float64, R=rows, j=j, freq=freq)
+        spec = args[0]
+        where = f"R={rows}, j={args[11]}, n={spec.n}, K={spec.K}"
+        got = traj_fused(*args)
+        want = _traj_plain(*args)
+        torch.cuda.synchronize()
+        for nm, a, b in zip(["q", "logp", "grad", "kin", "sacc"], got, want):
+            check_close(f"traj f64 {nm} ({where})", a, b, 1e-9, 1e-9)
+        if not torch.equal(got[5], want[5]):
+            raise AssertionError(f"traj f64 ({where}): divergence flags "
+                                 "differ")
+        print(f"traj: f64 every output within rtol/atol 1e-9 at {where} "
+              f"n_leap={args[1]} ({int(got[5].sum())} rows diverged in "
+              f"both)")
+    # float32: from random init logp is ~1e6, so float32 rounds H to ~0.1
+    # and multinomial near-ties would flip selections; with u_sel = 0 every
+    # live leaf is taken (log 0 = -inf), so the selection has no ties
+    args = traj_inputs(torch.float32, R=R,
+                       freq=np.logspace(*SWEEPS["n121_K141"]))
+    args = args[:12] + (torch.zeros_like(args[12]),)
     got = traj_fused(*args)
     want = _traj_plain(*args)
-    torch.cuda.synchronize()
-    for nm, a, b in zip(["q", "logp", "grad", "kin", "sacc"], got, want):
-        check_close(f"traj f64 {nm}", a, b, 1e-9, 1e-9)
-    if not torch.equal(got[5], want[5]):
-        raise AssertionError("traj f64: divergence flags differ")
-    print(f"traj: f64 every output within rtol/atol 1e-9 at R="
-          f"{args[4].shape[0]} n_leap={args[1]} j={args[11]} "
-          f"({int(got[5].sum())} rows diverged in both)")
+    ok, counts = traj_f32_rows(got, want)
+    print(f"traj: f32 wide tile (n={args[0].n}, K={args[0].K}, R={R}, "
+          f"u_sel = 0): {int(ok.sum())}/{R} rows agree; outside by output "
+          f"{counts}")
+    if int((~ok).sum()) > 0.001 * R:
+        raise AssertionError(f"traj f32 wide tile: {int((~ok).sum())} of "
+                             f"{R} rows differ")
+    # float32 times of the tiles the long sweeps take, beside their bound
+    for name in ("n91_K111", "n121_K141"):
+        args = traj_inputs(torch.float32, R=R,
+                           freq=np.logspace(*SWEEPS[name]))
+        ms = cuda_ms(lambda: traj_fused(*args), 5)
+        ops_s = traj_bound_s(args[0], R, N_STEPS)[0]
+        print(f"traj: f32 {name}: kernel {ms:.3f} ms per launch at R={R} "
+              f"n_leap={N_STEPS}; bound {1e3 * ops_s:.3f} ms, kernel at "
+              f"{100 * 1e3 * ops_s / ms:.1f}% of it [{card}]")
+
+
+def traj_bound_s(spec, R, n_leap):
+    """The trajectory's float32 bound: (seconds for its FMAs at the fp32
+    CUDA-core peak, seconds for its bytes, FMAs a row and leaf)."""
+    K, n2, D = spec.K, 2 * spec.n, spec.D
+    fma = 2 * n2 * K + 6 * K * K
+    ops_s = 2.0 * R * n_leap * fma / PEAK_FP32_S
+    nbytes = 4.0 * (R * (4 * D + n2 + 2) + n_leap * R + n2 * K + 3 * K * K
+                    + 3 * n2 + 8 + R * (2 * D + 4))
+    return ops_s, nbytes / PEAK_BYTES_S, fma
+
+
+def args_f64(args):
+    """traj_fused arguments in float64 (the shared matrices rebuilt)."""
+    import torch
+    from bayes_drt_tpu_torch.infer.shmc_flat import make_flat_shared
+    sh = args[3]
+    sh64 = make_flat_shared(sh.A.double(), sh.L.double(), sh.vecs.double(),
+                            sh.scal.double())
+    a64 = [a.double() if isinstance(a, torch.Tensor) else a for a in args]
+    a64[3] = sh64
+    return tuple(a64)
+
+
+def traj_f32_rows(got, want):
+    """Rows where float32 kernel and plain trajectory agree: the selected
+    q and kinetic energy within rtol/atol 1e-4 and the divergence flag
+    equal. Returns (mask, count of rows outside by output)."""
+    import torch
+    R = got[0].shape[0]
+    ok = torch.ones(R, dtype=torch.bool, device=got[0].device)
+    counts = {}
+    for name, i in (("q", 0), ("kin", 3)):
+        close = (got[i] - want[i]).abs() <= 1e-4 + 1e-4 * want[i].abs()
+        close = close.reshape(R, -1).all(dim=1)
+        counts[name] = int((~close).sum())
+        ok &= close
+    same = got[5] == want[5]
+    counts["diverging"] = int((~same).sum())
+    return ok & same, counts
 
 
 def phase_traj_f32(card, state):
@@ -200,32 +307,21 @@ def phase_traj_f32(card, state):
     import torch
     from bayes_drt_tpu_torch.infer.shmc_flat import (_traj_plain,
                                                      flat_value_and_grad,
-                                                     make_flat_shared,
                                                      traj_fused)
     args = traj_inputs(torch.float32, state)
     got = traj_fused(*args)
     want = _traj_plain(*args)
     torch.cuda.synchronize()
     R = args[4].shape[0]
-    ok = torch.ones(R, dtype=torch.bool, device="cuda")
-    counts = {}
-    for name, i in (("q", 0), ("kin", 3)):
-        close = (got[i] - want[i]).abs() <= 1e-4 + 1e-4 * want[i].abs()
-        close = close.reshape(R, -1).all(dim=1)
-        counts[name] = int((~close).sum())
-        ok &= close
+    ok, counts = traj_f32_rows(got, want)
     n_diff = int((~ok).sum())
-    flags_equal = torch.equal(got[5], want[5])
+    flags_equal = counts.pop("diverging") == 0
     # float64 references: logp/grad evaluated at each version's selected
     # point, sacc from the plain trajectory on the same inputs in float64
     # (the accept sum does not depend on the selection)
-    spec, sh = args[0], args[3]
-    sh64 = make_flat_shared(sh.A.double(), sh.L.double(), sh.vecs.double(),
-                            sh.scal.double())
-    tgt64 = args[10].double()
-    a64 = tuple(a.double() if isinstance(a, torch.Tensor) else a
-                for a in args)
-    sacc64 = _traj_plain(*a64[:3], sh64, *a64[4:])[4]
+    a64 = args_f64(args)
+    spec, sh64, tgt64 = a64[0], a64[3], a64[10]
+    sacc64 = _traj_plain(*a64)[4]
     errs = {}
     for who, out in (("kernel", got), ("plain", want)):
         lp64, g64 = flat_value_and_grad(spec, sh64.A, sh64.L, sh64.vecs,
@@ -256,12 +352,8 @@ def phase_traj_f32(card, state):
     ms = cuda_ms(lambda: traj_fused(*args), 10)
     plain_ms = cuda_ms(lambda: _traj_plain(*args), 2)
     spec, n_leap = args[0], args[1]
-    K, n2, D = spec.K, 2 * spec.n, spec.D
-    fma = 2 * n2 * K + 6 * K * K
-    ops_s = 2.0 * R * n_leap * fma / PEAK_FP32_S
-    nbytes = 4.0 * (R * (4 * D + n2 + 2) + n_leap * R + n2 * K + 3 * K * K
-                    + 3 * n2 + 8 + R * (2 * D + 4))
-    bytes_s = nbytes / PEAK_BYTES_S
+    D = spec.D
+    ops_s, bytes_s, fma = traj_bound_s(spec, R, n_leap)
     print(f"traj: f32 {R - n_diff}/{R} rows agree (q, kin within rtol/atol "
           f"1e-4), divergence flags equal; max error vs float64 "
           f"logp/grad/sacc: kernel {errs['kernel'][0]:.2e}/"
@@ -270,7 +362,8 @@ def phase_traj_f32(card, state):
           f"{errs['plain'][2]:.2e}; kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms per launch at R={R} D={D} "
           f"n_leap={n_leap}; bound {1e3 * ops_s:.3f} ms ({fma} "
-          f"FMA/row/leaf on fp32 CUDA cores) [{card}]")
+          f"FMA/row/leaf on fp32 CUDA cores), kernel at "
+          f"{100 * 1e3 * ops_s / ms:.1f}% of it [{card}]")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
                 bound_ms=1e3 * max(ops_s, bytes_s),
                 bound_by="operations" if ops_s >= bytes_s else "bytes")
@@ -344,7 +437,7 @@ def phase_main(card):
                                         "state_step_size")}
 
 
-def main():
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -361,7 +454,9 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     quad = phase_quad(card)
-    phase_traj_f64()
+    phase_traj_f64(card)
+    if "--check-only" in argv:
+        return 0
     launches, state = phase_main(card)
     traj = phase_traj_f32(card, state)
     kernels = [
@@ -383,4 +478,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

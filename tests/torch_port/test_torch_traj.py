@@ -24,8 +24,8 @@ torch.set_num_threads(1)
 NAMES = ["q", "logp", "grad", "kin", "sacc", "diverging"]
 
 
-def _inputs(jdt, rt=8, n_leap=6, seed=0):
-    freq = np.logspace(6, -2, 41)
+def _inputs(jdt, rt=8, n_leap=6, seed=0, freq=(6, -2, 41)):
+    freq = np.logspace(*freq)
     Z = jax_sim.reference_circuit("ZARC", freq)
     _, _, _, cfg, data, _ = _build_shared(freq, mode="sample", ncp=True,
                                           dtype=jdt)
@@ -81,3 +81,58 @@ def test_traj_plain_matches_jax_xla_and_pallas(jdt, tdt, tol):
             np.testing.assert_allclose(a, np.asarray(ref, np.float64),
                                        rtol=tol, atol=tol,
                                        err_msg=f"{name} vs {which}")
+
+
+# (n, K) = (41, 101) as above; (101, 121) takes two output passes of the
+# kernel's forward product; (121, 141) its wide tile (K > 128)
+GRIDS = [(6, -2, 41), (7, -3, 101), (8, -4, 121)]
+
+
+@pytest.mark.parametrize("freq", GRIDS)
+@pytest.mark.parametrize("jdt,tdt,tol", [
+    (jnp.float64, torch.float64, 1e-9), (jnp.float32, torch.float32, 2e-5)])
+def test_stacked_layout_matches_jax(jdt, tdt, tol, freq):
+    """The kernel reads A and L only through the stacked W (OP, KP) =
+    [A; L0; L1; L2] and its transpose WT, zero padded; FlatShared's A and
+    L are views into W that equal the JAX package's matrices, and the
+    plain trajectory on them equals the JAX package's."""
+    spec, shared, args = _inputs(jdt, freq=freq)
+    n_leap = args[-1].shape[0]
+    pspec, sh, qt, p0, g, lp, et, mt, tg, j, us = _port_args(spec, shared,
+                                                             args, tdt)
+    K, n2 = spec.K, 2 * spec.n
+    op, kp = shmc_flat.stacked_shape(spec.n, K)
+    assert tuple(sh.W.shape) == (op, kp) and sh.WT.is_contiguous()
+    assert torch.equal(sh.WT, sh.W.T) and tuple(sh.A.shape) == (n2, K)
+    assert not sh.W[n2 + 3 * K:].any() and not sh.W[:, K:].any()
+    assert sh.A.data_ptr() == sh.W.data_ptr()
+    np.testing.assert_array_equal(sh.A.numpy(), np.asarray(shared.A))
+    np.testing.assert_array_equal(sh.L.numpy(), np.asarray(shared.L))
+    out_t = shmc_flat._traj_plain(pspec, n_leap, 1000.0, sh, qt, p0, g, lp,
+                                  et, mt, tg, j, us)
+    out_x = _traj_xla(spec, n_leap, 1000.0, shared, *args)
+    for name, a, b in zip(NAMES, out_t, out_x):
+        np.testing.assert_allclose(a.double().numpy(),
+                                   np.asarray(b, np.float64), rtol=tol,
+                                   atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("K,n", [(2, 1), (101, 41), (101, 106), (111, 91),
+                                 (121, 72), (129, 40), (281, 27)])
+def test_stacked_shape_covers_every_shape(K, n):
+    """W has 2n + 3K rows or more (at least 2 KP, the two KP-row blocks
+    the kernel keeps the dups weights in) and K columns, each padded to a
+    multiple of 8; A and L read back from W exactly."""
+    op, kp = shmc_flat.stacked_shape(n, K)
+    assert op % 8 == 0 and kp % 8 == 0
+    assert kp - 8 < K <= kp and op >= 2 * n + 3 * K and op >= 2 * kp
+    assert op - 8 < 2 * n + 3 * K or op == 2 * kp
+    rng = np.random.default_rng(K * 1000 + n)
+    A = torch.as_tensor(rng.standard_normal((2 * n, K)))
+    L = torch.as_tensor(rng.standard_normal((3, K, K)))
+    sh = shmc_flat.make_flat_shared(A, L, torch.zeros((3, 2 * n),
+                                                      dtype=A.dtype),
+                                    torch.zeros(8, dtype=A.dtype))
+    assert tuple(sh.W.shape) == (op, kp)
+    assert torch.equal(sh.A, A) and torch.equal(sh.L, L)
+    assert torch.equal(sh.WT, sh.W.T) and sh.WT.is_contiguous()
