@@ -114,15 +114,44 @@ def unravel(cfg: PosteriorConfig, flat: torch.Tensor) -> dict:
 
 
 def init_unconstrained(cfg: PosteriorConfig, data: PosteriorData,
-                       generator: torch.Generator, batch_shape=()) -> dict:
-    """Stan-style random init: every unconstrained value ~ U(-2, 2) (Stan's
-    init=2), drawn from ``generator`` per parameter in flat-layout order."""
+                       generator: torch.Generator, batch_shape=(),
+                       init_values=None, jitter: float = 2.0) -> dict:
+    """Stan-style random init: every unconstrained value ~ U(-jitter,
+    jitter) (Stan's init=2), drawn from ``generator`` per parameter in
+    flat-layout order, optionally overridden by constrained-space
+    ``init_values`` (e.g. from a ridge fit): ``Rinf_raw`` and ``induc_raw``
+    (the values before the x100 / induc_scale transforms) and ``x_0``, each
+    broadcastable against ``batch_shape`` plus the parameter's shape. The
+    ``x_0`` override inverts x_scale, the exp of ``nonneg`` and, for
+    ``ncp``, the drawn ups."""
     dt, dev = data.target.dtype, data.target.device
     params = {}
     for name, shape in param_shapes(cfg):
         u = torch.rand(tuple(batch_shape) + shape, generator=generator,
                        dtype=dt, device=dev)
-        params[name] = 4.0 * u - 2.0
+        params[name] = (2.0 * jitter) * u - jitter
+    if not init_values:
+        return params
+
+    def iv(name):
+        return torch.as_tensor(init_values[name], device=dev).to(dt)
+
+    for name in ("Rinf_raw", "induc_raw"):
+        if name in init_values:
+            params[name] = torch.log(torch.clamp(iv(name), min=1e-10)).expand(
+                params[name].shape).clone()
+    if "x_0" in init_values:
+        x0 = (iv("x_0") / data.x_scales[0]).expand(params["x_0"].shape)
+        ups = torch.exp(params["ups_raw_0"]) * 0.15
+        if cfg.nonneg:
+            u0 = torch.log(torch.clamp(x0, min=1e-10))
+            params["x_0"] = u0 - torch.log(ups) if cfg.ncp else u0.clone()
+        else:
+            # exact zeros (active-set QP ridge inits) sit on the sqrt
+            # penalty's non-differentiable point; nudge to a tiny interior
+            # value
+            x0 = torch.where(x0 == 0.0, torch.full_like(x0, 1e-8), x0)
+            params["x_0"] = x0 / ups if cfg.ncp else x0.clone()
     return params
 
 

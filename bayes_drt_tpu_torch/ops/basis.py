@@ -1,7 +1,10 @@
-"""Gaussian radial basis function in y = ln(tau/tau_m) space and its
-derivatives (torch port of bayes_drt_tpu/ops/basis.py:14,45)."""
+"""Gaussian radial basis function in y = ln(tau/tau_m) space, its
+derivatives and its penalty inner products (torch port of
+bayes_drt_tpu/ops/basis.py:14,45,80)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -42,3 +45,20 @@ def gaussian_rbf_dy(y, epsilon, order):
     if 1.0 < order < 2.0:
         return (2.0 - order) * d(1) + (order - 1.0) * d(2)
     raise ValueError("order must be between 0 and 3")
+
+
+def gaussian_penalty_inner_product(a, epsilon, order: int):
+    """Closed-form integral int phi_n^(k) phi_m^(k) dy for Gaussian RBFs.
+
+    ``a = epsilon * ln(1/(w_n * tau_m))`` is the scaled log-distance between
+    basis centers. Returns the entries of the M (integral penalty) matrix
+    such that x^T M x = int (d^k gamma / d ln tau^k)^2 d ln tau."""
+    root = math.sqrt(math.pi / 2.0)
+    g = torch.exp(-(a * a) / 2.0)
+    if order == 0:
+        return root / epsilon * g
+    if order == 1:
+        return -root * epsilon * (-1.0 + a * a) * g
+    if order == 2:
+        return root * epsilon ** 3 * (3.0 - 6.0 * a * a + a ** 4) * g
+    raise ValueError(f"Invalid order {order} (must be 0, 1, or 2)")

@@ -1,5 +1,5 @@
-"""A (impedance) and L (differentiation) matrices (torch port of
-bayes_drt_tpu/ops/matrices.py).
+"""A (impedance), L (differentiation) and M (integral penalty) matrices
+(torch port of bayes_drt_tpu/ops/matrices.py).
 
 Default quadrature matches the reference: trapezoid on y in [-20, 20] with
 1000 points. ``construct_A`` evaluates the rule through ops/quad.py, whose
@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from .._numerics import resolve_device, resolve_dtype
-from .basis import gaussian_rbf, gaussian_rbf_dy
+from .basis import (gaussian_penalty_inner_product, gaussian_rbf,
+                    gaussian_rbf_dy)
 from .quad import drt_quad
 
 
@@ -95,3 +96,23 @@ def construct_L(frequencies, tau=None, basis: str = "gaussian", epsilon=1.0,
     if isinstance(order, (list, tuple, np.ndarray)):
         order = tuple(float(o) for o in order)
     return gaussian_rbf_dy(y, float(epsilon), order)
+
+
+def construct_M(frequencies, basis: str = "gaussian", order=1, epsilon=1.0,
+                dtype=None, device=None):
+    """Integral penalty matrix: x^T M x = int (d^k gamma/d ln tau^k)^2 d ln
+    tau over basis centers tau_m = 1/w_m. ``order`` is 0, 1, 2 or a
+    length-3 weight vector mixing the three."""
+    if basis != "gaussian":
+        raise ValueError(f"Invalid basis {basis!r} for M matrix")
+    dev = resolve_device(device)
+    dt = resolve_dtype(torch.float64 if dtype is None else dtype)
+    omega, tau_t = _omega_tau(frequencies, None, dt, dev)
+    eps = float(epsilon)
+    a = eps * (-torch.log(omega[:, None] * tau_t[None, :]))
+    if isinstance(order, (list, tuple, np.ndarray)):
+        f0, f1, f2 = (float(o) for o in order)
+        return (f0 * gaussian_penalty_inner_product(a, eps, 0)
+                + f1 * gaussian_penalty_inner_product(a, eps, 1)
+                + f2 * gaussian_penalty_inner_product(a, eps, 2))
+    return gaussian_penalty_inner_product(a, eps, int(order))

@@ -16,11 +16,31 @@ line is printed):
      last in float64 and float32.
   4. the main path: fit_spectra_batch on B=1024 noisy ZARC spectra,
      4 chains x (150 warmup + 250 draws), SHMC n_steps=32, float32, with
-     the five quality gates of the JAX package's bench and the launch
-     counts (2 quadrature, 400 trajectory launches).
+     the default escalation (the gate, then a ridge-seeded NUTS refit of
+     any flagged spectra), the five quality gates of the JAX package's
+     bench and the launch counts (2 quadrature launches, 4 more when a
+     refit runs: its ridge and its setup; 400 trajectory launches).
   5. the trajectory kernel against the plain trajectory in float32 at the
      main path's final sampler states, and its time per launch.
-  6. one JSON line listing both kernels with their launches and times.
+  6. the escalation path at full width: B=64 noisy ZARC spectra through
+     the same SHMC fit with every spectrum forced through the refit (NUTS
+     max_depth=8, tree_scan, seeded from the batched hyper-lambda ridge);
+     the splice, the gate figures of the 64 and the seconds of the ridge,
+     the NUTS draws and the call.
+  7. the default call, fit_spectra_batch(freq, Z) with no sampler
+     arguments (NUTS max_depth 10, escalation on) on the main path's 1024
+     spectra at a budget cut to 4 x (100 + 20): shape, values, mask,
+     launches, and the seconds of the call, of a warmup draw and of a
+     draw after warmup.
+  8. NUTS draw times from the main path's final states at R=256 and
+     R=4096 rows, eager and replayed as CUDA graphs: max_depth 8 static
+     (the refit's tree_scan) and max_depth 10 with the early stop (the
+     default NUTS path).
+  9. device parity in float64: the batched ridge on 8 spectra and one NUTS
+     transition (R=4096, D=211, max_depth=8; on the card replayed as CUDA
+     graphs, as sample_nuts runs it there) against the CPU.
+  10. one JSON line listing both kernels with their launches (phases 4,
+     6 and 7) and times.
 The last line of stdout is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --check-only   # phases 1-3, then stop
@@ -45,6 +65,17 @@ GATE_P90 = 0.05           # of Rp, per-spectrum RMSE p90
 GATE_COVERAGE = 0.93      # pointwise 95% band coverage
 GATE_MIN_ESS = 3.5        # median per-spectrum min-ESS
 GATE_LOGP_RHAT = 4.0      # median per-spectrum logp split-Rhat
+# the escalation phase: spectra, and its budget (the bench's unless cut to
+# keep the smoke's time; a cut is printed)
+B_ESC = 64
+ESC_WARMUP = WARMUP
+ESC_SAMPLES = SAMPLES
+NUTS_DEPTH = 8            # the refit's max_tree_depth
+# the default call's phase: the main path's B, and a budget cut from the
+# default 4 x (500 + 500) to keep the smoke's time
+B_DEFAULT = B
+DEFAULT_WARMUP = 100
+DEFAULT_SAMPLES = 20
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -376,7 +407,7 @@ def phase_main(card):
     from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
     from bayes_drt_tpu_torch.ops.matrices import get_tau_basis
     from bayes_drt_tpu_torch.ops.quad import drt_quad
-    from bayes_drt_tpu_torch.parallel import evaluate_gamma, fit_spectra_batch
+    from bayes_drt_tpu_torch.parallel import fit_spectra_batch
     freq, Zb = sim.make_benchmark_batch(B, circuit="ZARC",
                                         noise_level=0.0025, seed=0)
     tau = get_tau_basis(np.sort(freq)[::-1])
@@ -391,21 +422,18 @@ def phase_main(card):
     res = fit_spectra_batch(freq, Zb, mode="sample", chains=CHAINS,
                             warmup=WARMUP, samples=SAMPLES, random_seed=1,
                             ncp=True, sampler="shmc", shmc_cfg=cfg,
-                            gamma_eval_tau=tau, escalate=False,
-                            dtype=np.float32, timing=True)
+                            gamma_eval_tau=tau, dtype=np.float32,
+                            timing=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
-    if launches != {"quad": 2, "traj": WARMUP + SAMPLES}:
-        raise AssertionError(f"main path launch counts {launches}, expected "
-                             f"quad 2, traj {WARMUP + SAMPLES}")
     d = res.diagnostics
-    g = evaluate_gamma(res, tau)
-    rmse = float(np.sqrt(np.mean((g.mean(axis=0) - gt) ** 2)))
-    per = np.sqrt(np.mean((g - gt[None, :]) ** 2, axis=1))
-    p90 = float(np.percentile(per, 90))
-    cov = float(np.mean((gt[None, :] >= d["gamma_eval_lo"])
-                        & (gt[None, :] <= d["gamma_eval_hi"])))
+    rmse, p90, cov = gamma_figures(res, tau, gt, rp)
+    flagged = int(d["escalated"].sum())
+    want = {"quad": 2 + (4 if flagged else 0), "traj": WARMUP + SAMPLES}
+    if launches != want:
+        raise AssertionError(f"main path launch counts {launches}, expected "
+                             f"{want} ({flagged} spectra refitted)")
     ess_med = float(np.median(d["min_ess"]))
     ess_bulk_p10 = float(np.percentile(d["ess_bulk_min"], 10))
     rhat_med = float(np.median(d["logp_rhat"]))
@@ -415,8 +443,8 @@ def phase_main(card):
                       ("gamma_hi", res.gamma_hi)):
         if arr.shape != (B, len(tau)) or not np.isfinite(arr).all():
             raise AssertionError(f"main path {name}: bad shape or values")
-    gates = {"rmse": bool(rmse < GATE_RMSE * rp),
-             "p90": bool(p90 < GATE_P90 * rp),
+    gates = {"rmse": bool(rmse < GATE_RMSE),
+             "p90": bool(p90 < GATE_P90),
              "coverage": bool(cov > GATE_COVERAGE),
              "min_ess_med": bool(ess_med > GATE_MIN_ESS),
              "logp_rhat_med": bool(rhat_med < GATE_LOGP_RHAT)}
@@ -424,10 +452,11 @@ def phase_main(card):
         "B": B, "wall_s": wall, "spectra_per_min": B / (wall / 60.0),
         "traj_ms_per_draw_median": float(np.median(traj_ms)),
         "traj_ms_total": float(traj_ms.sum()), "phase_s": d["phase_s"],
-        "rmse_over_rp": rmse / rp, "p90_over_rp": p90 / rp,
+        "rmse_over_rp": rmse, "p90_over_rp": p90,
         "coverage": cov, "min_ess_median": ess_med,
         "ess_bulk_min_p10": ess_bulk_p10, "logp_rhat_median": rhat_med,
-        "divergence_rate": div, "gates": gates, "launches": launches,
+        "divergence_rate": div, "escalated": flagged,
+        "refit_s": d.get("refit_s"), "gates": gates, "launches": launches,
         "card": card}
     print("main path: " + json.dumps(summary))
     failed = [k for k, v in gates.items() if not v]
@@ -435,6 +464,363 @@ def phase_main(card):
         raise AssertionError(f"main path quality gates failed: {failed}")
     return launches, {k: d[k] for k in ("state_q", "state_inv_mass",
                                         "state_step_size")}
+
+
+def gamma_figures(res, tau, gt, rp):
+    """(RMSE of the batch-mean gamma, p90 of per-spectrum RMSE, both over
+    Rp; pointwise band coverage) of a fit with gamma_eval_tau=tau."""
+    from bayes_drt_tpu_torch.parallel import evaluate_gamma
+    d = res.diagnostics
+    g = evaluate_gamma(res, tau)
+    rmse = float(np.sqrt(np.mean((g.mean(axis=0) - gt) ** 2)))
+    per = np.sqrt(np.mean((g - gt[None, :]) ** 2, axis=1))
+    cov = float(np.mean((gt[None, :] >= d["gamma_eval_lo"])
+                        & (gt[None, :] <= d["gamma_eval_hi"])))
+    return rmse / rp, float(np.percentile(per, 90)) / rp, cov
+
+
+def phase_escalation(card):
+    """The escalation path at full width: B_ESC spectra through the main
+    path's SHMC fit with the gate forced to flag every spectrum, so all of
+    them are refitted by NUTS (max_depth 8, tree_scan) from the batched
+    ridge seed and spliced back. Checks the mask, that every spliced row
+    is the refit's, the launch counts and the gates on RMSE, p90 and
+    coverage."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.matrices import get_tau_basis
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    from bayes_drt_tpu_torch.parallel import batch
+    if (ESC_WARMUP, ESC_SAMPLES) != (WARMUP, SAMPLES):
+        print(f"escalation: budget cut to {CHAINS}x({ESC_WARMUP}+"
+              f"{ESC_SAMPLES}) from {CHAINS}x({WARMUP}+{SAMPLES})")
+    freq, Zb = sim.make_benchmark_batch(B_ESC, circuit="ZARC",
+                                        noise_level=0.0025, seed=2)
+    tau = get_tau_basis(np.sort(freq)[::-1])
+    gt = sim.reference_gamma("ZARC", tau)
+    rp = np.trapezoid(gt, np.log(tau))
+    cfg = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS,
+                     eps_quantile=EPS_QUANTILE)
+    seen = {}
+    splice = batch._splice_results
+
+    def spy(result, sub, mask):
+        seen.update(result=result, sub=sub, mask=mask)
+        return splice(result, sub, mask)
+
+    batch._splice_results = spy
+    try:
+        drt_quad.launches = 0
+        traj_fused.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batch.fit_spectra_batch(
+            freq, Zb, mode="sample", chains=CHAINS, warmup=ESC_WARMUP,
+            samples=ESC_SAMPLES, random_seed=3, ncp=True, sampler="shmc",
+            shmc_cfg=cfg, gamma_eval_tau=tau, dtype=np.float32,
+            escalate_gate=dict(ess_bulk_min=np.inf), timing=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        batch._splice_results = splice
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    want = {"quad": 6, "traj": ESC_WARMUP + ESC_SAMPLES}
+    if launches != want:
+        raise AssertionError(f"escalation launch counts {launches}, "
+                             f"expected {want}")
+    d, sub = res.diagnostics, seen["sub"]
+    if not (d["escalated"].all() and seen["mask"].all()):
+        raise AssertionError("escalation: not every spectrum was refitted")
+    for name in ("coef", "r_inf", "inductance", "gamma_lo", "gamma_hi"):
+        if not np.array_equal(getattr(res, name), getattr(sub, name)):
+            raise AssertionError(f"escalation: spliced {name} is not the "
+                                 "refit's")
+    for k in ("gamma_eval_lo", "gamma_eval_hi", "ess_bulk_min",
+              "n_leapfrog"):
+        if not np.array_equal(d[k], sub.diagnostics[k]):
+            raise AssertionError(f"escalation: spliced {k} is not the "
+                                 "refit's")
+    rmse, p90, cov = gamma_figures(res, tau, gt, rp)
+    sd = sub.diagnostics
+    draw_s = np.asarray(sd["draw_s"])
+    summary = {
+        "B": B_ESC, "budget": [CHAINS, ESC_WARMUP, ESC_SAMPLES],
+        "wall_s": wall, "refit_s": d["refit_s"],
+        "ridge_s": sd["phase_s"]["ridge"],
+        "refit_phase_s": sd["phase_s"],
+        "nuts_draw_s_median": float(np.median(draw_s)),
+        "nuts_draw_s_total": float(draw_s.sum()),
+        "rmse_over_rp": rmse, "p90_over_rp": p90, "coverage": cov,
+        "divergence_rate": float(np.mean(d["divergence_rate"])),
+        "n_leapfrog_mean": float(np.mean(d["n_leapfrog"])),
+        "ess_bulk_min_median": float(np.median(d["ess_bulk_min"])),
+        "launches": launches, "card": card}
+    print("escalation: " + json.dumps(summary))
+    gates = {"rmse": rmse < GATE_RMSE, "p90": p90 < GATE_P90,
+             "coverage": cov > GATE_COVERAGE}
+    failed = [k for k, v in gates.items() if not v]
+    if failed:
+        raise AssertionError(f"escalation quality gates failed: {failed}")
+    return launches
+
+
+def phase_default(card):
+    """The default call, fit_spectra_batch(freq, Z) with no sampler
+    arguments: NUTS max_depth 10 (the early stop replayed as CUDA graphs)
+    with the default escalation, on B_DEFAULT spectra (R = 4096 rows) at
+    a cut budget. Checks the result's shape and values, the recorded mask
+    and the launch counts; prints its seconds, the median seconds of a
+    warmup draw and of a draw after warmup, and its figures (no quality
+    gate at this budget)."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.matrices import get_tau_basis
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    from bayes_drt_tpu_torch.parallel import fit_spectra_batch
+    print(f"default call: budget cut to {CHAINS}x({DEFAULT_WARMUP}+"
+          f"{DEFAULT_SAMPLES}) from {CHAINS}x(500+500)")
+    freq, Zb = sim.make_benchmark_batch(B_DEFAULT, circuit="ZARC",
+                                        noise_level=0.0025, seed=6)
+    tau = get_tau_basis(np.sort(freq)[::-1])
+    gt = sim.reference_gamma("ZARC", tau)
+    rp = np.trapezoid(gt, np.log(tau))
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_spectra_batch(freq, Zb, warmup=DEFAULT_WARMUP,
+                            samples=DEFAULT_SAMPLES, gamma_eval_tau=tau,
+                            timing=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = res.diagnostics
+    flagged = int(d["escalated"].sum())
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    want = {"quad": 2 + (4 if flagged else 0), "traj": 0}
+    if launches != want:
+        raise AssertionError(f"default call launch counts {launches}, "
+                             f"expected {want}")
+    if res.coef.shape != (B_DEFAULT, len(tau)) or not np.isfinite(
+            res.coef).all():
+        raise AssertionError("default call: bad coefficients")
+    rmse, p90, cov = gamma_figures(res, tau, gt, rp)
+    draw_s = np.asarray(d["draw_s"])
+    print("default call: " + json.dumps({
+        "B": B_DEFAULT, "budget": [CHAINS, DEFAULT_WARMUP, DEFAULT_SAMPLES],
+        "max_tree_depth": 10, "wall_s": wall, "phase_s": d["phase_s"],
+        "nuts_draw_s_first": float(draw_s[0]),
+        "nuts_warmup_draw_s_median": float(np.median(
+            draw_s[1:DEFAULT_WARMUP])),
+        "nuts_sample_draw_s_median": float(np.median(
+            draw_s[DEFAULT_WARMUP:])),
+        "n_leapfrog_mean": float(np.mean(d["n_leapfrog"])),
+        "escalated": flagged, "refit_s": d.get("refit_s"),
+        "rmse_over_rp": rmse, "p90_over_rp": p90, "coverage": cov,
+        "launches": launches, "card": card}))
+    return launches
+
+
+def nuts_rows(dtype, state, R, device="cuda"):
+    """The first R of the main path's final chain states as NUTS rows:
+    (value_and_grad, q, logp, grad, eps, m_inv) on ``device``."""
+    import torch
+    from bayes_drt_tpu_torch.infer.shmc_flat import flat_value_and_grad
+    args = traj_inputs(dtype, state)
+    spec, sh, tgt = args[0], args[3], args[10]
+    if device != "cuda":
+        from bayes_drt_tpu_torch.infer.shmc_flat import make_flat_shared
+        sh = make_flat_shared(*(t.to(device) for t in (sh.A, sh.L, sh.vecs,
+                                                       sh.scal)))
+    tgt = tgt[:R].to(device)
+
+    def vg(q):
+        return flat_value_and_grad(spec, sh.A, sh.L, sh.vecs, sh.scal, q,
+                                   tgt)
+
+    q = args[4][:R].to(device)
+    lp, g = vg(q)
+    return vg, q, lp, g, args[8][:R].to(device), args[9][:R].to(device)
+
+
+def nuts_noise_np(R, D, depth, seed, dtype, device):
+    """One draw's NUTSNoise from a numpy seed."""
+    import torch
+    from bayes_drt_tpu_torch.infer.nuts import NUTSNoise
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return NUTSNoise(z=t(rng.standard_normal((R, D))).to(dtype),
+                     go_right=t(rng.uniform(size=(depth, R)) < 0.5),
+                     swap_u=t(rng.uniform(size=(depth, R))).to(dtype),
+                     leaf_u=t(rng.uniform(size=((1 << depth) - 1,
+                                                R))).to(dtype))
+
+
+def phase_nuts_timing(card, state):
+    """Seconds per NUTS draw in float32 from the main path's final states
+    at R=256 and R=4096 rows, eager and replayed as CUDA graphs: max_depth
+    8 with the static tree (the refit's form) and max_depth 10 stopping
+    once no row is alive (the default NUTS path's form). The graphs'
+    outputs must equal the eager ones on the same inputs."""
+    import torch
+    from bayes_drt_tpu_torch.infer.nuts import (GraphedTree,
+                                                nuts_transition_flat)
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps, res
+
+    out = {}
+    for R in (256, B * CHAINS):
+        vg, q, lp, g, eps, m_inv = nuts_rows(torch.float32, state, R)
+        for depth, scan in ((NUTS_DEPTH, True), (10, False)):
+            noise = nuts_noise_np(R, q.shape[1], depth, 5, torch.float32,
+                                  "cuda")
+            e_s, e_out = timed(lambda: nuts_transition_flat(
+                vg, q, lp, g, noise, eps, m_inv, max_depth=depth,
+                tree_scan=scan), 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree = GraphedTree(vg, q, lp, g, noise, eps, m_inv, depth,
+                               1000.0, early_stop=not scan)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            g_s, g_out = timed(lambda: tree(q, lp, g, noise, eps, m_inv), 3)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(e_out[:3] + tuple(e_out[3]),
+                           g_out[:3] + tuple(g_out[3])))
+            name = f"R{R}_md{depth}_{'static' if scan else 'early_stop'}"
+            out[name] = dict(eager_s=e_s, graph_s=g_s, capture_s=capture_s,
+                             identical=same, n_leapfrog_mean=float(
+                                 e_out[3].n_leapfrog.float().mean()),
+                             n_leapfrog_max=int(e_out[3].n_leapfrog.max()))
+            del tree
+            if not same:
+                raise AssertionError(f"nuts {name}: graph replay differs "
+                                     "from eager")
+    print(f"nuts timing (float32, seconds per draw): {json.dumps(out)} "
+          f"[{card}]")
+
+
+def phase_parity(card, state):
+    """float64 on the card against the port on the CPU: the batched ridge
+    on 8 spectra (coefficients within rtol 1e-8 of each spectrum's
+    largest, iteration counts equal) and one NUTS transition at R=4096,
+    D=211, max_depth 8 with the same noise, on the card as CUDA graphs
+    (GraphedTree, the refit's static form, equal bit for bit to the eager
+    form there) and on the CPU eagerly: n_leapfrog, depth and divergence
+    identical, q within 1e-9 of the row's largest entry, and logp and grad
+    within 1e-9 of the CPU's evaluation at the card's point, on at least
+    99.9% of rows; every differing row is printed."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.nuts import (GraphedTree,
+                                                nuts_transition_flat)
+    from bayes_drt_tpu_torch.parallel import ridge_fit_spectra_batch
+    torch.set_num_threads(8)
+    freq, Zb = sim.make_benchmark_batch(8, circuit="ZARC",
+                                        noise_level=0.0025, seed=4)
+    kw = dict(penalty="integral", hyper_lambda=True, lambda_0=1.0,
+              hl_beta=5, weights="modulus", dtype=torch.float64)
+    t0 = time.perf_counter()
+    on_card = ridge_fit_spectra_batch(freq, Zb, device="cuda", **kw)
+    card_s = time.perf_counter() - t0
+    on_cpu = ridge_fit_spectra_batch(freq, Zb, device="cpu", **kw)
+    full = lambda r: np.concatenate([r.coef, r.r_inf[:, None],
+                                     r.inductance[:, None]], axis=1)
+    a, b = full(on_card), full(on_cpu)
+    scale = np.abs(b).max(axis=1, keepdims=True)
+    rel = float((np.abs(a - b) / scale).max())
+    it_a, it_b = on_card.diagnostics["n_iter"], on_cpu.diagnostics["n_iter"]
+    print(f"parity ridge: 8 spectra float64, max |card - cpu| / max|coef| "
+          f"{rel:.3e}, iterations card {it_a.tolist()} cpu {it_b.tolist()}"
+          f"; card {card_s:.3f} s")
+    if rel > 1e-8 or not np.array_equal(it_a, it_b):
+        raise AssertionError("parity ridge: card and CPU differ")
+
+    R = B * CHAINS
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        vg, q, lp, g, eps, m_inv = nuts_rows(torch.float64, state, R, dev)
+        noise = nuts_noise_np(R, q.shape[1], NUTS_DEPTH, 6, torch.float64,
+                              dev)
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            # the card's side runs as sample_nuts runs the refit there: the
+            # static tree replayed as CUDA graphs, which must equal the
+            # eager early-stop form on the card bit for bit
+            tree = GraphedTree(vg, q, lp, g, noise, eps, m_inv, NUTS_DEPTH,
+                               1000.0)
+            o = tree(q, lp, g, noise, eps, m_inv)
+            eager = nuts_transition_flat(vg, q, lp, g, noise, eps, m_inv,
+                                         max_depth=NUTS_DEPTH)
+            torch.cuda.synchronize()
+            del tree
+            flat_o = o[:3] + tuple(o[3])
+            flat_e = eager[:3] + tuple(eager[3])
+            graph_eager = max(float((a.double() - b.double()).abs().max())
+                              for a, b in zip(flat_o, flat_e))
+            print(f"parity nuts: float64 graph replay vs eager on the card, "
+                  f"largest difference {graph_eager:.3e}")
+            if not all(torch.equal(a, b) for a, b in zip(flat_o, flat_e)):
+                raise AssertionError("parity nuts: float64 graph replay "
+                                     "differs from eager on the card")
+        else:
+            o = nuts_transition_flat(vg, q, lp, g, noise, eps, m_inv,
+                                     max_depth=NUTS_DEPTH)
+        outs[dev] = [t.cpu() for t in o[:3]] + [t.cpu() for t in o[3]]
+        if dev == "cpu":
+            vg_cpu = vg
+        print(f"parity nuts: {dev} transition {time.perf_counter() - t0:.2f}"
+              " s" + (" (capture, replay and eager)" if dev == "cuda"
+                      else ""))
+    c, h = outs["cuda"], outs["cpu"]
+    same = (c[4] == h[4]) & (c[5] == h[5]) & (c[7] == h[7])
+    # each row's q within 1e-9 of the row's largest entry: after up to 255
+    # leapfrogs the two summation orders leave ~1e-12 relative
+    # differences. The stiff posterior turns those into ~1e-7 relative
+    # gradient differences (printed), so the card's logp and grad are held
+    # to the CPU's evaluation at the card's own selected point.
+    direct = {}
+    for name, a, b in zip(("q", "logp", "grad"), c[:3], h[:3]):
+        a, b = a.reshape(R, -1), b.reshape(R, -1)
+        scale = torch.clamp(b.abs().max(dim=1).values, min=1.0)
+        direct[name] = (a - b).abs().max(dim=1).values / scale
+    lp_at, g_at = vg_cpu(c[0])
+    rel = {"q": direct["q"]}
+    for name, a, b in (("logp", c[1], lp_at), ("grad", c[2], g_at)):
+        a, b = a.reshape(R, -1), b.reshape(R, -1)
+        scale = torch.clamp(b.abs().max(dim=1).values, min=1.0)
+        rel[name] = (a - b).abs().max(dim=1).values / scale
+    for v in rel.values():
+        same &= v <= 1e-9
+    print("parity nuts: largest relative difference of the two selected "
+          "points' q, logp, grad: "
+          + ", ".join(f"{float(v.max()):.2e}" for v in direct.values()))
+    bad = torch.nonzero(~same).flatten().tolist()
+    for r in bad:
+        print(f"parity nuts: row {r} differs: n_leapfrog {int(c[5][r])}/"
+              f"{int(h[5][r])}, depth {int(c[7][r])}/{int(h[7][r])}, "
+              f"diverging {bool(c[4][r])}/{bool(h[4][r])}, relative error "
+              + ", ".join(f"{k} {float(v[r]):.1e}" for k, v in rel.items()))
+    print("parity nuts: largest relative error over rows (q; logp, grad "
+          "at the card's point): "
+          + ", ".join(f"{float(v.max()):.2e}" for v in rel.values()))
+    print(f"parity nuts: {R - len(bad)}/{R} rows identical in tree and "
+          f"within 1e-9 (float64, md{NUTS_DEPTH}; mean n_leapfrog "
+          f"{float(h[5].float().mean()):.1f}) [{card}]")
+    if len(bad) > 0.001 * R:
+        raise AssertionError(f"parity nuts: {len(bad)} of {R} rows differ")
 
 
 def main(argv):
@@ -459,6 +845,11 @@ def main(argv):
         return 0
     launches, state = phase_main(card)
     traj = phase_traj_f32(card, state)
+    esc = phase_escalation(card)
+    dflt = phase_default(card)
+    launches = {k: launches[k] + esc[k] + dflt[k] for k in launches}
+    phase_nuts_timing(card, state)
+    phase_parity(card, state)
     kernels = [
         dict(name="drt_quad", route="cuda",
              source="bayes_drt_tpu_torch/csrc/quad.cu",

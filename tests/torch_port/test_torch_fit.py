@@ -133,12 +133,18 @@ def test_entry_points_refuse_without_cuda():
 
 def test_unported_options_raise():
     freq, Zb = _batch()
-    no_esc = {k: v for k, v in KW.items() if k != "escalate"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        fit_spectra_batch(freq, Zb, device="cpu", escalate=True, **no_esc)
-    # the default (escalate=None) means escalation on for shmc
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        fit_spectra_batch(freq, Zb, device="cpu", **no_esc)
     with pytest.raises(NotImplementedError, match="optimize"):
         fit_spectra_batch(freq, Zb, device="cpu",
                           **{**KW, "mode": "optimize"})
+    for kw in (dict(sampler="chees"), dict(warm_start=object()),
+               dict(precondition="pooled")):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            fit_spectra_batch(freq, Zb, device="cpu", **{**KW, **kw})
+    with pytest.raises(ValueError, match="Unknown sampler"):
+        fit_spectra_batch(freq, Zb, device="cpu",
+                          **{**KW, "sampler": "hmc"})
+    # the flat-chain SHMC sampler takes no ridge seed (nor does the JAX
+    # package's flat-chain path)
+    with pytest.raises(ValueError, match="init_from_ridge"):
+        fit_spectra_batch(freq, Zb, device="cpu", init_from_ridge=True,
+                          **KW)

@@ -71,6 +71,22 @@ def test_pool_eps_matches_flat_rows(q):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-14)
 
 
+@pytest.mark.parametrize("q", [-1.0, 0.0, 0.5])
+def test_pool_eps_matches_chees_pool_eps(q):
+    """The port pools as the JAX package's default SHMC path does
+    (chees._pool_eps), including eps_quantile < 0: every chain keeps its
+    own step size."""
+    rng = np.random.default_rng(2)
+    eps = np.exp(rng.uniform(-6, 0, (6, 4)))
+    got = chees._pool_eps(torch.as_tensor(eps),
+                          chees.SHMCConfig(eps_quantile=q))
+    cfg_j = jax_chees.SHMCConfig(eps_quantile=q)
+    want = jax.vmap(lambda e: jax_chees._pool_eps(e, cfg_j))(
+        jnp.asarray(eps))
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-14)
+
+
 def _jax_noise(key, rt, dim, n_leaps):
     """The random numbers sample_shmc_flat draws, regenerated from its key
     splits: eps0 momenta per row, then (z, u_sel) per draw."""
