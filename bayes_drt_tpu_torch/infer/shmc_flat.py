@@ -139,13 +139,18 @@ def flat_shared_for(cfg, data, dtype) -> FlatShared:
                             scal)
 
 
-def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target):
+def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target,
+                        jacobian: bool = True):
     """Batched value and gradient of the single-series-DRT log posterior.
 
     q: (R, D) unconstrained rows; target: (R, 2n) scaled impedance rows.
     Returns (lp (R,), grad (R, D)), equal to autograd of
-    models/posterior.log_density (jacobian=True) on every row."""
+    models/posterior.log_density(..., jacobian) on every row:
+    ``jacobian=False`` drops the exp transforms' (and ncp's) log-Jacobian,
+    which leaves Stan's ``optimizing`` objective (the MAP path)."""
     K, n = spec.K, spec.n
+    # d(log-Jacobian)/d(raw) of every exp transform is 1
+    jac1 = 1.0 if jacobian else 0.0
     sigma_min, ups_alpha, ups_beta = scal[0], scal[1], scal[2]
     induc_scale, x_scale = scal[3], scal[4]
     rv, iv, mask = vecs[0], vecs[1], vecs[2]
@@ -216,15 +221,16 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target):
     pri = pri + torch.sum(cu - (ups_alpha + 1.0) * u
                           - ups_beta * torch.exp(-u), dim=1)
 
-    # ---- Jacobian of the exp transforms (+ ncp change of variables) ----
-    jac = (r_ + ai + ap + ar + iu + sr + torch.sum(d, dim=1)
-           + torch.sum(u, dim=1))
-    if spec.nonneg:
-        jac = jac + torch.sum(v, dim=1)
-    if spec.ncp:
-        jac = jac + torch.sum(u, dim=1) + K * log15
-
-    lp = loglik + lp_q + lp_dups + pri + jac
+    lp = loglik + lp_q + lp_dups + pri
+    if jacobian:
+        # ---- Jacobian of the exp transforms (+ ncp change of variables) ----
+        jac = (r_ + ai + ap + ar + iu + sr + torch.sum(d, dim=1)
+               + torch.sum(u, dim=1))
+        if spec.nonneg:
+            jac = jac + torch.sum(v, dim=1)
+        if spec.ncp:
+            jac = jac + torch.sum(u, dim=1) + K * log15
+        lp = lp + jac
 
     # ================= gradient =================
     gl = mask[None, :] * resid * ivar
@@ -237,15 +243,15 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target):
 
     g_x = g_pred @ A                                   # (R, K)
     g_xraw = x_scale * g_x
-    g_r = torch.sum(g_pred * rv[None, :], dim=1) * rinf + 1.0 - er * er
-    g_iu = torch.sum(g_pred * iv[None, :], dim=1) * induc + 1.0 - ei * ei
-    g_sr = torch.sum(w, dim=1) * 2.0 * sres * sres + 1.0 - es * es
+    g_r = torch.sum(g_pred * rv[None, :], dim=1) * rinf + jac1 - er * er
+    g_iu = torch.sum(g_pred * iv[None, :], dim=1) * induc + jac1 - ei * ei
+    g_sr = torch.sum(w, dim=1) * 2.0 * sres * sres + jac1 - es * es
     g_ap = (torch.sum(w * pred * pred, dim=1) * 2.0 * a_p * a_p
-            + 1.0 - eap * eap)
+            + jac1 - eap * eap)
     g_ar = (torch.sum(wsum * p_re * p_re, dim=1) * 2.0 * a_re * a_re
-            + 1.0 - ear * ear)
+            + jac1 - ear * ear)
     g_ai = (torch.sum(wsum * p_im * p_im, dim=1) * 2.0 * a_im * a_im
-            + 1.0 - eai * eai)
+            + jac1 - eai * eai)
 
     # q-penalty: dlp/dLx_k = -ds_k * Lx_k / ups^2
     gLx0 = -ds[:, 0:1] * Lx0 * iu2
@@ -257,14 +263,14 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target):
         -0.5 * torch.sum(Lx0 * Lx0 * iu2, dim=1) * ds[:, 0],
         -0.5 * torch.sum(Lx1 * Lx1 * iu2, dim=1) * ds[:, 1],
         -0.5 * torch.sum(Lx2 * Lx2 * iu2, dim=1) * ds[:, 2],
-    ], dim=1) + 1.0 - 6.0 + 5.0 * torch.exp(-d)
+    ], dim=1) + jac1 - 6.0 + 5.0 * torch.exp(-d)
 
     # ups: q-penalty, prior, jacobians, dups coupling, and the ncp
     # x_raw = base*ups dependence
     g_u = ((S * iu2 - 1.0) - (ups_alpha + 1.0)
-           + ups_beta * torch.exp(-u) + 1.0)
+           + ups_beta * torch.exp(-u) + jac1)
     if spec.ncp:
-        g_u = g_u + 1.0 + g_xraw * x_raw
+        g_u = g_u + jac1 + g_xraw * x_raw
     wd = -dups
     g_a = wd * (-0.25 / c_w)
     g_c = wd * 0.25 * (a_w + b_w) / (c_w * c_w)
@@ -280,7 +286,7 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target):
         dxdv = ups if spec.ncp else torch.ones_like(x_raw)
     g_v = g_xraw * dxdv
     if spec.nonneg:
-        g_v = g_v + 1.0
+        g_v = g_v + jac1
 
     grad = torch.empty_like(q)
     grad[:, spec.off_rinf] = g_r

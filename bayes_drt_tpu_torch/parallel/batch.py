@@ -1,18 +1,22 @@
 """Batched Bayesian inversion of many spectra on one frequency grid (port
-of the sample path of bayes_drt_tpu/parallel/batch.py).
+of the single-series paths of bayes_drt_tpu/parallel/batch.py).
 
-``fit_spectra_batch`` runs B spectra x C chains as one (B*C, D) chain axis
-through NUTS (infer/nuts.py, the default) or the flat-chain SHMC sampler
-(infer/shmc_flat.py, every draw one launch of the hand-written trajectory
-kernel), summarizes each spectrum's posterior on the device, and by
-default refits the spectra that fail the mixing gate with a ridge-seeded
-NUTS run spliced into the result. ``ridge_fit_spectra_batch`` is the
-batched hyper-lambda ridge (infer/ridge.py) that seeds it. The A matrices
-come from the hand-written quadrature kernel (ops/quad.py).
+``fit_spectra_batch`` samples (``mode='sample'``) B spectra x C chains as
+one (B*C, D) chain axis through NUTS (infer/nuts.py, the default) or the
+flat-chain SHMC sampler (infer/shmc_flat.py, every draw one launch of the
+hand-written trajectory kernel), summarizes each spectrum's posterior on
+the device, and by default refits the spectra that fail the mixing gate
+with a ridge-seeded NUTS run spliced into the result. ``mode='optimize'``
+finds each spectrum's MAP point with the batched L-BFGS and Newton polish
+of infer/map.py, from random restarts or a ridge seed.
+``ridge_fit_spectra_batch`` is the batched hyper-lambda ridge
+(infer/ridge.py) that seeds both; ``predict_Z_batch`` evaluates a fit's
+impedance. The A matrices come from the hand-written quadrature kernel
+(ops/quad.py).
 
-Not ported yet: MAP (mode='optimize'), ChEES, warm starts, the pooled
-preconditioner, cross-validated and hyper-weights ridge, meshes and models
-beyond the single series DRT.
+Not ported yet: ChEES, warm starts, the pooled preconditioner,
+cross-validated and hyper-weights ridge, meshes and models beyond the
+single series DRT (outliers among them).
 """
 
 from __future__ import annotations
@@ -28,13 +32,14 @@ import torch
 from .._numerics import resolve_device, resolve_dtype
 from ..infer.chees import SHMCConfig
 from ..infer.diagnostics import ess_bulk_jnp, ess_jnp, rhat_rank_jnp
+from ..infer.map import newton_polish, run_lbfgs, run_lbfgs_restarts
 from ..infer.nuts import NUTSConfig, sample_nuts
 from ..infer.ridge import (HyperLambdaConfig, RidgeData, run_hyper_lambda,
                            run_ordinary_ridge)
 from ..infer.shmc_flat import (flat_shared_for, flat_spec_for,
                                flat_value_and_grad, sample_shmc_flat)
 from ..models.build import build_posterior, z_scale_for
-from ..models.posterior import (constrain, init_unconstrained,
+from ..models.posterior import (constrain, init_unconstrained, log_density,
                                 predict_target, ravel, unravel)
 from ..ops.matrices import (construct_A, construct_L, construct_M,
                             default_epsilon, get_tau_basis)
@@ -188,16 +193,20 @@ def _make_summarize(cfg, chains, samples):
     return summarize
 
 
-def _build_shared(frequencies, nonneg=False, dtype=None, ncp=False,
+def _build_shared(frequencies, mode="sample", basis_freq=None, epsilon=None,
+                  nonneg=False, dtype=None, ncp=False, sigma_min=0.002,
                   device=None):
     """Matrices at the common (descending) frequency grid for the single
-    series DRT with the default basis, and the sampling posterior built
-    from them. A is integrated in float64 by ops/quad.py (two kernel
-    launches on a CUDA device)."""
+    series DRT (basis at ``basis_freq``, default from the grid), and the
+    ``mode`` posterior built from them. A is integrated in float64 by
+    ops/quad.py (two kernel launches on a CUDA device)."""
     dev = resolve_device(device)
     frequencies = np.sort(np.asarray(frequencies, float))[::-1]
-    tau = get_tau_basis(frequencies)
-    eps = default_epsilon(tau)
+    if basis_freq is None:
+        tau = get_tau_basis(frequencies)
+    else:
+        tau = 1.0 / (2 * np.pi * np.asarray(basis_freq, float))
+    eps = default_epsilon(tau) if epsilon is None else float(epsilon)
     f_coll = 1.0 / (2 * np.pi * tau)
     kw = dict(tau=tau, epsilon=eps, dtype=torch.float64, device=dev)
     mats = {"A_re": construct_A(frequencies, "real", **kw),
@@ -207,13 +216,51 @@ def _build_shared(frequencies, nonneg=False, dtype=None, ncp=False,
     dists = {"DRT": {"kernel": "DRT", "dist_type": "series"}}
     z_dummy = np.ones(len(frequencies)) + 0j   # replaced per spectrum
     cfg, data = build_posterior(dists, {"DRT": mats}, frequencies, z_dummy,
-                                mode="sample", nonneg=nonneg, dtype=dtype,
-                                ncp=ncp, device=dev)
+                                mode=mode, nonneg=nonneg, sigma_min=sigma_min,
+                                dtype=dtype, ncp=ncp, device=dev)
     return frequencies, tau, eps, cfg, data
 
 
+class MapObjective:
+    """The MAP loss of the single series DRT on (R, D) rows of
+    unconstrained parameters, row i fitting ``targets[i]`` (R, 2n): minus
+    the log posterior without the transforms' Jacobian (Stan's
+    ``optimizing`` objective). ``value_and_grad`` is the hand-written
+    gradient of infer/shmc_flat.py; ``hessian`` is autograd of
+    models/posterior.log_density, as the JAX package takes
+    ``jax.hessian``: reverse over reverse (torch.func.jacrev twice), since
+    torch.func.hessian's forward-over-reverse fails on a float32 matmul
+    (a float64 tangent) and is slower. Both take the rows' indices into
+    ``targets`` (all rows when None)."""
+
+    def __init__(self, cfg, data, targets):
+        self.cfg, self.data, self.targets = cfg, data, targets
+        self.spec = flat_spec_for(cfg, data)
+        self.shared = flat_shared_for(cfg, data, targets.dtype)
+
+    def _targets(self, rows):
+        return self.targets if rows is None else self.targets[rows]
+
+    def value_and_grad(self, q, rows=None):
+        sh = self.shared
+        lp, g = flat_value_and_grad(self.spec, sh.A, sh.L, sh.vecs, sh.scal,
+                                    q, self._targets(rows), jacobian=False)
+        return -lp, -g
+
+    def hessian(self, q, rows=None):
+        cfg, data = self.cfg, self.data
+
+        def loss(q_row, t_row):
+            return -log_density(cfg, data._replace(target=t_row),
+                                unravel(cfg, q_row), jacobian=False)
+
+        hess = torch.func.jacrev(torch.func.jacrev(loss))
+        return torch.func.vmap(hess)(q, self._targets(rows))
+
+
 def _ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
-                       ridge_kw, dtype, device):
+                       ridge_kw, dtype, device, basis_freq=None,
+                       epsilon=None):
     """Per-spectrum ridge-seeded init values for a single series DRT: one
     batched hyper-lambda ridge pass over the real spectra, padded like the
     batch, in the scaled coordinates init_unconstrained expects (x, and
@@ -222,6 +269,7 @@ def _ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
                      hl_beta=5, weights="modulus")
     rdefaults.update(ridge_kw or {})
     rres = ridge_fit_spectra_batch(frequencies, Z_batch[:b_real],
+                                   basis_freq=basis_freq, epsilon=epsilon,
                                    dtype=dtype, device=device, **rdefaults)
     b = Z_batch.shape[0]
     iv_x = _pad_rows(np.asarray(rres.coef), b)
@@ -242,8 +290,11 @@ def _per_spectrum(x, b, chains):
 
 
 def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
-                      nonneg: bool = False, chains: int = 4,
+                      basis_freq=None, epsilon=None, nonneg: bool = False,
+                      outliers: bool = False, chains: int = 4,
                       warmup: int = 500, samples: int = 500,
+                      max_iter: int = 2000, n_restarts: int = 2,
+                      polish: bool = True,
                       init_from_ridge: bool = False,
                       ridge_kw: Optional[dict] = None,
                       random_seed: int = 0, max_tree_depth: int = 10,
@@ -251,17 +302,31 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                       ncp: bool = False, unroll: int = 1,
                       flat_tree: bool = False, tree_scan: bool = False,
                       scan_unroll: int = 1, gamma_eval_tau=None,
-                      z_scale=None, sampler: str = "nuts", shmc_cfg=None,
+                      z_scale=None, sigma_min: float = 0.002,
+                      sampler: str = "nuts", shmc_cfg=None,
                       warm_start=None, quality: Optional[str] = None,
                       escalate: Optional[bool] = None,
                       escalate_gate: Optional[dict] = None,
                       escalate_kw: Optional[dict] = None,
                       timing: bool = False, device=None) -> BatchFitResult:
-    """Fit B spectra sharing one frequency grid (single series DRT).
+    """Fit B spectra sharing one frequency grid (single series DRT, basis
+    at ``basis_freq`` with inverse length scale ``epsilon``, both from the
+    grid by default; ``sigma_min`` is the error model's floor).
 
-    Z_batch: complex (B, N). All B*chains chains run as one (B*chains, D)
-    row axis. ``sampler='nuts'`` (the default) runs NUTS with
-    ``max_tree_depth`` and a per-chain step size and diagonal metric;
+    ``mode='optimize'`` finds each spectrum's MAP point: L-BFGS from
+    ``n_restarts`` Stan-random starts (all B * n_restarts runs as one row
+    axis, each spectrum keeping its best finite optimum) or, with
+    ``init_from_ridge``, one run from the batched hyper-lambda ridge
+    solution, capped at ``max_iter`` iterations, then (``polish``) a
+    damped Newton refinement. ``gamma_lo``/``gamma_hi`` are None;
+    ``diagnostics`` holds each spectrum's ``value`` (the minimized
+    objective), ``n_iter`` (L-BFGS plus polish iterations), ``grad_norm``
+    and ``converged`` (exited on tolerance; the certificate).
+
+    ``mode='sample'``: Z_batch is complex (B, N). All B*chains chains run
+    as one (B*chains, D) row axis. ``sampler='nuts'`` (the default) runs
+    NUTS with ``max_tree_depth`` and a per-chain step size and diagonal
+    metric;
     ``tree_scan`` runs every tree's static 2^max_tree_depth - 1 leaves,
     ``flat_tree`` and the default stop a tree once no chain is still
     building it (the same draws either way). ``unroll`` and
@@ -290,11 +355,14 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     ``init_from_ridge``.
 
     ``timing`` records host-clock spans closed by a device synchronize
-    (``diagnostics['phase_s']``: setup, ridge when seeded, sample, summary),
-    the trajectory kernel's per-draw device times (SHMC,
-    ``diagnostics['traj_ms']``), each NUTS draw's seconds
+    (``diagnostics['phase_s']``: setup, ridge when seeded, then sample and
+    summary, or lbfgs and polish, with the L-BFGS part of ``n_iter`` in
+    ``diagnostics['n_iter_lbfgs']``), the trajectory kernel's per-draw device
+    times (SHMC, ``diagnostics['traj_ms']``), each NUTS draw's seconds
     (``diagnostics['draw_s']``) and the escalation refit's seconds
     (``diagnostics['refit_s']``).
+
+    ``outliers=True`` (the outlier model) is not ported yet and raises.
     """
     if quality is not None:
         if quality not in QUALITY_PRESETS:
@@ -313,34 +381,14 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         max_tree_depth = p.get("max_tree_depth", max_tree_depth)
         tree_scan = p.get("tree_scan", tree_scan)
         scan_unroll = p.get("scan_unroll", scan_unroll)
-    if mode != "sample":
-        raise NotImplementedError(
-            "mode='optimize' (MAP) is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
-    if sampler == "chees":
-        raise NotImplementedError("sampler='chees' is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
-    if sampler not in ("nuts", "shmc"):
-        raise ValueError(f"Unknown sampler {sampler!r}; options are "
-                         "'nuts', 'chees', 'shmc'")
-    for name, val in (("warm_start", warm_start),
-                      ("precondition", precondition)):
-        if val is not None:
-            raise NotImplementedError(f"{name}= is not ported yet (ROADMAP "
-                                      "Queue 1 item 12)")
-    if init_from_ridge and sampler == "shmc":
-        raise ValueError("init_from_ridge does not support the flat-chain "
-                         "SHMC sampler; use sampler='nuts'")
+    if mode not in ("sample", "optimize"):
+        raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
+                         "'optimize'")
+    if outliers:
+        raise NotImplementedError("outliers=True is not ported yet (ROADMAP "
+                                  "Queue 1 item 10)")
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
-    if sampler == "shmc":
-        sh_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
-        sh_cfg.validate()
-    else:
-        nuts_cfg = NUTSConfig(max_depth=max_tree_depth, unroll=unroll,
-                              flat_tree=flat_tree, tree_scan=tree_scan,
-                              scan_unroll=scan_unroll)
-        nuts_cfg.validate()
     phases = {}
     clock = [time.perf_counter()]
 
@@ -357,16 +405,37 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     frequencies = np.asarray(frequencies, float)[order]
     Z_batch, b_real = _pad_pow2(Z_batch[:, order])
     b = Z_batch.shape[0]
-    frequencies, tau, eps, cfg, data = _build_shared(
-        frequencies, nonneg=nonneg, dtype=dt, ncp=ncp, device=dev)
-    if z_scale is None:
-        z_scales = z_scale_for({"DRT": {"dist_type": "series"}}, Z_batch)
+    if mode == "optimize":
+        return _fit_map(frequencies, Z_batch, b_real, basis_freq, epsilon,
+                        nonneg, sigma_min, z_scale, dt, dev, random_seed,
+                        init_from_ridge, ridge_kw, n_restarts, max_iter,
+                        polish, mark, phases if timing else None)
+    if sampler == "chees":
+        raise NotImplementedError("sampler='chees' is not ported yet "
+                                  "(ROADMAP Queue 1 item 12)")
+    if sampler not in ("nuts", "shmc"):
+        raise ValueError(f"Unknown sampler {sampler!r}; options are "
+                         "'nuts', 'chees', 'shmc'")
+    for name, val in (("warm_start", warm_start),
+                      ("precondition", precondition)):
+        if val is not None:
+            raise NotImplementedError(f"{name}= is not ported yet (ROADMAP "
+                                      "Queue 1 item 12)")
+    if init_from_ridge and sampler == "shmc":
+        raise ValueError("init_from_ridge does not support the flat-chain "
+                         "SHMC sampler; use sampler='nuts'")
+    if sampler == "shmc":
+        sh_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
+        sh_cfg.validate()
     else:
-        zs = np.broadcast_to(np.asarray(z_scale, float), (b_real,))
-        z_scales = np.concatenate([zs, np.full(b - b_real, zs[-1])])
-    Zs = Z_batch / z_scales[:, None]
-    targets = torch.as_tensor(np.concatenate([Zs.real, Zs.imag], axis=1),
-                              device=dev).to(dt)
+        nuts_cfg = NUTSConfig(max_depth=max_tree_depth, unroll=unroll,
+                              flat_tree=flat_tree, tree_scan=tree_scan,
+                              scan_unroll=scan_unroll)
+        nuts_cfg.validate()
+    frequencies, tau, eps, cfg, data = _build_shared(
+        frequencies, basis_freq=basis_freq, epsilon=epsilon, nonneg=nonneg,
+        dtype=dt, ncp=ncp, sigma_min=sigma_min, device=dev)
+    z_scales, targets = _scaled_targets(Z_batch, b_real, z_scale, dt, dev)
 
     k0 = len(tau)
     mon_idx = np.unique(np.linspace(0, k0 - 1, 8).astype(int))
@@ -388,7 +457,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if init_from_ridge:
         iv_x, iv_rinf, iv_induc = _ridge_init_values(
             frequencies, Z_batch, b_real, z_scales, spec.K, ridge_kw, dt,
-            dev)
+            dev, basis_freq=basis_freq, epsilon=epsilon)
         init_values = {"x_0": iv_x[:, None, :], "Rinf_raw": iv_rinf[:, None],
                        "induc_raw": iv_induc[:, None]}
         mark("ridge")
@@ -441,6 +510,9 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
             diagnostics[k_ge] = diagnostics[k_ge] * scale0
     for k_z in ("z_hat_mean", "z_hat_std"):
         diagnostics[k_z] = diagnostics[k_z] * z_scales[:, None]
+    # the training grid (descending), where predict_Z_batch serves the
+    # draws' mean prediction
+    diagnostics["f_train"] = np.asarray(frequencies, float)
     if timing:
         for k in ("traj_ms", "draw_s"):
             if k in info:
@@ -482,15 +554,91 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
             t_refit = time.perf_counter()
             sub = fit_spectra_batch(
                 frequencies, Z_batch[:b_real][esc_mask], mode="sample",
-                nonneg=nonneg, chains=chains, warmup=warmup,
-                samples=samples, random_seed=random_seed + 1,
-                gamma_eval_tau=gamma_eval_tau, z_scale=sub_z_scale,
-                dtype=dtype, escalate=False, timing=timing, device=dev,
-                **esc_kw)
+                basis_freq=basis_freq, epsilon=epsilon, nonneg=nonneg,
+                chains=chains, warmup=warmup, samples=samples,
+                random_seed=random_seed + 1, gamma_eval_tau=gamma_eval_tau,
+                z_scale=sub_z_scale, sigma_min=sigma_min, dtype=dtype,
+                escalate=False, timing=timing, device=dev, **esc_kw)
             if timing:
                 diagnostics["refit_s"] = time.perf_counter() - t_refit
             result = _splice_results(result, sub, esc_mask)
     return result
+
+
+def _scaled_targets(Z_batch, b_real, z_scale, dtype, device):
+    """Per-spectrum Z scales (data-derived, or ``z_scale`` for the real
+    rows and the last of it for the padding) and the scaled stacked
+    [Re | Im] targets (b, 2n)."""
+    b = Z_batch.shape[0]
+    if z_scale is None:
+        z_scales = z_scale_for({"DRT": {"dist_type": "series"}}, Z_batch)
+    else:
+        zs = np.broadcast_to(np.asarray(z_scale, float), (b_real,))
+        z_scales = np.concatenate([zs, np.full(b - b_real, zs[-1])])
+    Zs = Z_batch / z_scales[:, None]
+    targets = torch.as_tensor(np.concatenate([Zs.real, Zs.imag], axis=1),
+                              device=device).to(dtype)
+    return z_scales, targets
+
+
+def _fit_map(frequencies, Z_batch, b_real, basis_freq, epsilon, nonneg,
+             sigma_min, z_scale, dtype, device, random_seed, init_from_ridge,
+             ridge_kw, n_restarts, max_iter, polish, mark, phases):
+    """fit_spectra_batch(mode='optimize') on the padded, descending batch:
+    L-BFGS from Stan-random restarts or the ridge seed, the Newton polish,
+    and the result at the real rows."""
+    b = Z_batch.shape[0]
+    frequencies, tau, eps, cfg, data = _build_shared(
+        frequencies, mode="optimize", basis_freq=basis_freq, epsilon=epsilon,
+        nonneg=nonneg, dtype=dtype, sigma_min=sigma_min, device=device)
+    z_scales, targets = _scaled_targets(Z_batch, b_real, z_scale, dtype,
+                                        device)
+    gen = torch.Generator(device=device).manual_seed(int(random_seed))
+    obj = MapObjective(cfg, data, targets)
+    mark("setup")
+    if init_from_ridge:
+        iv_x, iv_rinf, iv_induc = _ridge_init_values(
+            frequencies, Z_batch, b_real, z_scales, obj.spec.K, ridge_kw,
+            dtype, device, basis_freq=basis_freq, epsilon=epsilon)
+        mark("ridge")
+        q0 = ravel(cfg, init_unconstrained(
+            cfg, data, gen, batch_shape=(b,),
+            init_values={"x_0": iv_x, "Rinf_raw": iv_rinf,
+                         "induc_raw": iv_induc}))
+        res = run_lbfgs(obj.value_and_grad, q0, max_iter=max_iter)
+    else:
+        q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
+                                           batch_shape=(b, n_restarts)))
+        rows = MapObjective(cfg, data, targets.repeat_interleave(
+            n_restarts, dim=0))
+        res = run_lbfgs_restarts(rows.value_and_grad, q0, max_iter=max_iter)
+    mark("lbfgs")
+    n_lbfgs = res.n_iter
+    if polish:
+        # the L-BFGS cap binds before Stan-grade convergence on this
+        # posterior; a damped Newton pass certifies the optimum
+        pol = newton_polish(obj.value_and_grad, obj.hessian, res.params)
+        res = pol._replace(n_iter=res.n_iter + pol.n_iter)
+        mark("polish")
+    c = constrain(cfg, data, unravel(cfg, res.params[:b_real]))
+    z_scales = z_scales[:b_real]
+
+    def host(t):
+        return t[:b_real].cpu().numpy()
+
+    diagnostics = {"value": host(res.value),
+                   "n_iter": host(res.n_iter).astype(np.float32),
+                   "grad_norm": host(res.grad_norm),
+                   "converged": host(res.converged)}
+    if phases is not None:
+        diagnostics["phase_s"] = phases
+        diagnostics["n_iter_lbfgs"] = host(n_lbfgs).astype(np.float32)
+    return BatchFitResult(
+        coef=c["x_0"].cpu().numpy() * z_scales[:, None],
+        r_inf=c["Rinf"].cpu().numpy() * z_scales,
+        inductance=c["induc"].cpu().numpy() * z_scales, gamma_lo=None,
+        gamma_hi=None, z_scales=z_scales, tau=tau, epsilon=eps,
+        diagnostics=diagnostics)
 
 
 # ---- escalation gate and splice (copied from the JAX package's
@@ -822,3 +970,32 @@ def evaluate_gamma(result: BatchFitResult, eval_tau, which: str = "coef"):
         coefs = result.diagnostics[which]
     y = np.log(eval_tau[:, None] / result.tau[None, :])
     return coefs @ _gaussian_rbf_np(y, result.epsilon).T
+
+
+def predict_Z_batch(result: BatchFitResult, frequencies, device=None):
+    """Predicted impedance of every spectrum of a batch fit at
+    ``frequencies``: Z = R_inf + j w L + coef @ A(f)^T at the MAP point or
+    posterior-mean coefficients, A built by ``construct_A`` in float64
+    (the quadrature kernel on a CUDA device). At exactly the training grid
+    of a sample-mode fit it returns the draws' mean prediction
+    (``diagnostics['z_hat_mean']``), the reference's generated-quantities
+    semantics. Returns a complex (B, N) array."""
+    frequencies = np.asarray(frequencies, float)
+    f_train = result.diagnostics.get("f_train")
+    if f_train is not None and len(f_train) == len(frequencies):
+        # match the requested grid against f_train up to reordering
+        idx = np.argsort(f_train)[::-1][np.argsort(
+            np.argsort(frequencies)[::-1])]
+        if np.allclose(f_train[idx], frequencies, rtol=1e-10):
+            zm = np.asarray(result.diagnostics["z_hat_mean"], float)
+            n = len(f_train)
+            return (zm[:, :n] + 1j * zm[:, n:])[:, idx]
+    dev = resolve_device(device)
+    kw = dict(tau=result.tau, epsilon=result.epsilon, basis=result.basis,
+              dtype=torch.float64, device=dev)
+    A = (construct_A(frequencies, "real", **kw).cpu().numpy()
+         + 1j * construct_A(frequencies, "imag", **kw).cpu().numpy())
+    z = (np.asarray(result.r_inf, float)[:, None]
+         + 1j * 2 * np.pi * frequencies[None, :]
+         * np.asarray(result.inductance, float)[:, None])
+    return z + np.asarray(result.coef) @ A.T

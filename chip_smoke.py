@@ -29,7 +29,7 @@ line is printed):
      the NUTS draws and the call.
   7. the default call, fit_spectra_batch(freq, Z) with no sampler
      arguments (NUTS max_depth 10, escalation on) on the main path's 1024
-     spectra at a budget cut to 4 x (100 + 20): shape, values, mask,
+     spectra at a budget cut to 4 x (60 + 20): shape, values, mask,
      launches, and the seconds of the call, of a warmup draw and of a
      draw after warmup.
   8. NUTS draw times from the main path's final states at R=256 and
@@ -39,8 +39,19 @@ line is printed):
   9. device parity in float64: the batched ridge on 8 spectra and one NUTS
      transition (R=4096, D=211, max_depth=8; on the card replayed as CUDA
      graphs, as sample_nuts runs it there) against the CPU.
-  10. one JSON line listing both kernels with their launches (phases 4,
-     6 and 7) and times.
+  10. MAP: fit_spectra_batch(mode="optimize") on the main path's 1024
+     spectra in the default form (2 restarts, so 2048 L-BFGS rows, capped
+     at 2000 iterations, then the Newton polish) and in the production
+     form (ridge seed, cap 1500, polish), each gated on finite
+     coefficients, batch-mean gamma RMSE and per-spectrum p90; their
+     seconds, seconds per L-BFGS iteration and certificates;
+     predict_Z_batch at the training grid and a 2x denser one; then
+     float64 card-vs-CPU parity of run_lbfgs and newton_polish on 8
+     spectra from the same numpy-made starts.
+  11. one JSON line listing both kernels with their launches (phases 4,
+     6, 7 and 10) and times; K2's bound counts the function's least fp64
+     work a node, and the count its compiled loop issues (cuobjdump
+     -sass) is printed beside it.
 The last line of stdout is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --check-only   # phases 1-3, then stop
@@ -74,20 +85,38 @@ NUTS_DEPTH = 8            # the refit's max_tree_depth
 # the default call's phase: the main path's B, and a budget cut from the
 # default 4 x (500 + 500) to keep the smoke's time
 B_DEFAULT = B
-DEFAULT_WARMUP = 100
+DEFAULT_WARMUP = 60
 DEFAULT_SAMPLES = 20
+
+# the MAP phase: the default form's caps and restarts, the production
+# form's cap, its gates (of Rp; p90 is the JAX MAP tests' per-spectrum
+# bar) and the float64 parity's spectra and caps (the short cap holds
+# the iterates themselves: L-BFGS amplifies the two devices' last-bit
+# differences by ~1e2 every 10 iterations on this posterior)
+MAP_ITER = 2000
+MAP_RESTARTS = 2
+MAP_RIDGE_ITER = 1500
+MAP_GATE_RMSE = 0.03
+MAP_GATE_P90 = 0.08
+MAP_PARITY_B = 8
+MAP_PARITY_ITER = 200
+MAP_PARITY_SHORT = 25
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_FP64_S = 34e12
-# fp64-pipe instructions per quadrature node, estimated from the
-# algorithms rather than read from the binary: about 17 for exp (range
-# reduction, a degree-11 polynomial, rebuilding the exponent, the
-# special-value test), about 8 for the IEEE divide (Newton steps on a
-# reciprocal estimate, the quotient and its correction), and about 5
-# adds and multiply-adds around them
-QUAD_FP64_PER_NODE = 30
+# instructions that issue to the fp64 pipe (counted in K2's compiled loop)
+FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
+# K2's least fp64-pipe work a node. The exps leave the node loop, since
+# exp(+-(y_q + s)) = exp(+-y_q) exp(+-s): 2 (Q + N K) exps a call, under
+# 0.4% of the nodes' work at the main path's shapes, left out. The
+# imaginary part, -e / (1 + e^2) with e = min(e^y e^s, e^-y e^-s): 2 DMUL,
+# 1 DMNMX, 1 DFMA (1 + e^2), one IEEE divide (7 DFMA and 1 DMUL refine its
+# MUFU.RCP64H seed) and 1 DFMA into the sum. The real part, 1 / (1 +
+# clip(e^2y e^2s, e^-80, e^80)): 1 DMUL, 2 DMNMX, 1 DADD, the divide and
+# 1 DFMA. 13 either way.
+QUAD_FP64_MIN_PER_NODE = 13
 # frequency grids of the shape cases of phase 3: (n, K) = (91, 111) and
 # (101, 121) need two output passes of the forward product, the second
 # also smaller stages in float64; (72, 121) is the main tile's edge (one
@@ -129,6 +158,78 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max())
 
 
+def sass_loop_counts(sass, kernel):
+    """Instruction counts of the innermost node loop of ``kernel`` (a
+    substring of its mangled name) in ``cuobjdump -sass`` text: the
+    shortest backward branch's body that holds an MUFU.RCP64H (one per
+    IEEE fp64 divide, so one per quadrature node); the grid-stride loop
+    around it also holds the per-output reduction. Returns (nodes a trip,
+    fp64-pipe instructions a trip, other fp64 conversions a trip)."""
+    import re
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next((f for f in funcs[1:] if kernel in f.split()[0]), None)
+    if body is None:
+        raise AssertionError(f"cuobjdump: no function matching {kernel}")
+    instrs, labels = [], {}
+    pending = []
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        text = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip())
+        instrs.append((addr, text))
+    best = None
+    for addr, text in instrs:
+        if not text.startswith("BRA"):
+            continue
+        t = re.search(r"(0x[0-9a-f]+|\.L_x_\d+)", text)
+        if t is None:
+            continue
+        tgt = (labels.get(t.group(1)) if t.group(1).startswith(".L")
+               else int(t.group(1), 16))
+        if tgt is None or tgt >= addr:
+            continue
+        loop = [x for a, x in instrs if tgt <= a <= addr]
+        nodes = sum(x.startswith("MUFU.RCP64H") for x in loop)
+        if nodes and (best is None or len(loop) < best[3]):
+            fp64 = sum(x.split()[0].split(".")[0] in FP64_OPS for x in loop)
+            conv = sum(x.split()[0].split(".")[0] in ("F2F", "F2I", "I2F")
+                       and "F64" in x.split()[0] for x in loop)
+            best = (nodes, fp64, conv, len(loop))
+    if best is None:
+        raise AssertionError(f"cuobjdump: no loop with an fp64 divide in "
+                             f"{kernel}")
+    return best[:3]
+
+
+def quad_fp64_per_node():
+    """fp64-pipe instructions a node of K2's float64 loops, read from the
+    built library with cuobjdump -sass; prints both parts' counts and
+    returns the imaginary part's (the one timed)."""
+    import shutil
+    from bayes_drt_tpu_torch import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path("quad"))],
+                          capture_output=True, text=True, check=True).stdout
+    per = {}
+    for part, tag in (("real", "drt_quad_kernelIdLb0E"),
+                      ("imag", "drt_quad_kernelIdLb1E")):
+        nodes, fp64, conv = sass_loop_counts(sass, tag)
+        per[part] = fp64 / nodes
+        print(f"quad sass: f64 {part} loop: {nodes} nodes a trip, {fp64} "
+              f"fp64-pipe instructions ({', '.join(FP64_OPS)}), {conv} "
+              f"fp64 conversions: {per[part]:.2f} a node")
+    return per["imag"]
+
+
 def phase_quad(card):
     import torch
     from bayes_drt_tpu_torch.ops.matrices import (_quad_grid, default_epsilon,
@@ -161,16 +262,19 @@ def phase_quad(card):
     plain_ms = cuda_ms(lambda: drt_quad_plain(s64, y, phiw, "imag"), 20)
     n, k = s64.shape
     q = y.numel()
-    # bound: every node's exp, divide and adds as fp64-pipe instructions,
-    # at one instruction per fp64 unit and clock (half the FMA flop rate)
-    ops_s = n * k * q * QUAD_FP64_PER_NODE / (PEAK_FP64_S / 2)
+    # bound: the function's least fp64-pipe work a node, at one instruction
+    # per fp64 unit and clock (half the FMA flop rate); the compiled loop's
+    # count is printed beside it
+    compiled = quad_fp64_per_node()
+    ops_s = n * k * q * QUAD_FP64_MIN_PER_NODE / (PEAK_FP64_S / 2)
     bytes_s = 8.0 * (2 * n * k + 2 * q) / PEAK_BYTES_S
     bound_ms = 1e3 * max(ops_s, bytes_s)
     print(f"quad: f64 within rtol 1e-10, f32 within rtol 2e-4/atol 1e-5 of "
           f"f64 (Q=1000 and 1024); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
           f" ms per call at N={n} K={k} Q={q} float64; bound "
-          f"{bound_ms:.4f} ms ({QUAD_FP64_PER_NODE} fp64 instructions per "
-          f"node, estimated), kernel at {100 * bound_ms / ms:.1f}% of it "
+          f"{bound_ms:.4f} ms ({QUAD_FP64_MIN_PER_NODE} fp64 instructions a "
+          f"node, the function's least; the compiled loop issues "
+          f"{compiled:.2f}), kernel at {100 * bound_ms / ms:.1f}% of it "
           f"[{card}]")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
                 bound_ms=bound_ms,
@@ -823,6 +927,254 @@ def phase_parity(card, state):
         raise AssertionError(f"parity nuts: {len(bad)} of {R} rows differ")
 
 
+def map_figures(res, tau, gt, rp):
+    """(RMSE of the batch-mean gamma, p90 of per-spectrum RMSE), of Rp."""
+    from bayes_drt_tpu_torch.parallel import evaluate_gamma
+    g = evaluate_gamma(res, tau)
+    rmse = float(np.sqrt(np.mean((g.mean(axis=0) - gt) ** 2)))
+    per = np.sqrt(np.mean((g - gt[None, :]) ** 2, axis=1))
+    return rmse / float(rp), float(np.percentile(per, 90) / rp)
+
+
+def phase_map(card):
+    """MAP on the main path's 1024 spectra: (a) the default call
+    fit_spectra_batch(freq, Z, mode="optimize") (2 restarts, 2048 L-BFGS
+    rows, cap 2000, polish), (b) the production form (ridge seed, cap
+    1500, polish); each gated on finite coefficients of the right shape,
+    batch-mean gamma RMSE and per-spectrum p90; (c) predict_Z_batch at
+    the training grid and a 2x denser one. Returns the K2 launches,
+    checked against what the calls build (A at setup, the ridge's A, A at
+    each prediction grid)."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.matrices import get_tau_basis
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    from bayes_drt_tpu_torch.parallel import batch, predict_Z_batch
+    freq, Zb = sim.make_benchmark_batch(B, circuit="ZARC",
+                                        noise_level=0.0025, seed=0)
+    tau = get_tau_basis(np.sort(freq)[::-1])
+    gt = sim.reference_gamma("ZARC", tau)
+    rp = np.trapezoid(gt, np.log(tau))
+    forms = {"default": {},
+             "ridge": dict(init_from_ridge=True, max_iter=MAP_RIDGE_ITER)}
+    out, results = {}, {}
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    for name, kw in forms.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batch.fit_spectra_batch(freq, Zb, mode="optimize",
+                                      timing=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results[name] = res
+        if res.coef.shape != (B, len(tau)) or not np.isfinite(
+                res.coef).all():
+            raise AssertionError(f"map {name}: bad coefficients")
+        rmse, p90 = map_figures(res, tau, gt, rp)
+        d = res.diagnostics
+        n_it, n_lbfgs = d["n_iter"], d["n_iter_lbfgs"]
+        out[name] = {
+            "B": B, "rows": B * (1 if kw else MAP_RESTARTS),
+            "max_iter": kw.get("max_iter", MAP_ITER), "wall_s": wall,
+            "phase_s": d["phase_s"], "lbfgs_iters": int(n_lbfgs.max()),
+            "polish_iters_max": int((n_it - n_lbfgs).max()),
+            "s_per_lbfgs_iter": d["phase_s"]["lbfgs"] / float(n_lbfgs.max()),
+            "n_iter_q": [float(np.percentile(n_it, q))
+                         for q in (0, 10, 50, 90, 100)],
+            "converged_share": float(np.mean(d["converged"])),
+            "grad_norm_median": float(np.median(d["grad_norm"])),
+            "rmse_over_rp": rmse, "p90_over_rp": p90}
+        gates = {"rmse": bool(rmse < MAP_GATE_RMSE),
+                 "p90": bool(p90 < MAP_GATE_P90)}
+        out[name]["gates"] = gates
+        print(f"map {name}: " + json.dumps(out[name]) + f" [{card}]")
+        failed = [k for k, v in gates.items() if not v]
+        if failed:
+            raise AssertionError(f"map {name}: gates failed: {failed}")
+    res = results["default"]
+    z_train = predict_Z_batch(res, freq)
+    f_dense = np.logspace(np.log10(freq.max()), np.log10(freq.min()),
+                          2 * len(freq) - 1)
+    z_dense = predict_Z_batch(res, f_dense)
+    if (z_train.shape != Zb.shape or z_dense.shape != (B, len(f_dense))
+            or not np.isfinite(z_train).all()
+            or not np.isfinite(z_dense).all()):
+        raise AssertionError("map predict_Z_batch: bad shape or values")
+    resid = float(np.median(np.abs(z_train - Zb) / np.abs(Zb)))
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    # K2: setup; setup and the ridge's A; the two prediction grids
+    want = {"quad": 2 + 4 + 4, "traj": 0}
+    print(f"map predict_Z_batch: median |Z_hat - Z| / |Z| at the training "
+          f"grid {resid:.3e}; {len(f_dense)}-point grid finite; launches in "
+          f"the MAP phase {launches} (expected {want}) [{card}]")
+    if launches != want:
+        raise AssertionError(f"map launch counts {launches}, expected {want}")
+    polish_pieces(card, freq, Zb)
+    return launches
+
+
+def polish_pieces(card, freq, Zb):
+    """Device time of one polish iteration's pieces at B=1024, float32,
+    from CUDA events: the Hessian (autograd, reverse over reverse), the
+    batched solve and one value and gradient."""
+    import torch
+    from bayes_drt_tpu_torch.models.posterior import (init_unconstrained,
+                                                      ravel)
+    from bayes_drt_tpu_torch.parallel import batch
+    f_desc = np.sort(freq)[::-1]
+    _, _, _, cfg, data = batch._build_shared(f_desc, mode="optimize",
+                                             device="cuda")
+    _, tgt = batch._scaled_targets(
+        np.ascontiguousarray(Zb[:, np.argsort(freq)[::-1]]), B, None,
+        torch.float32, "cuda")
+    obj = batch.MapObjective(cfg, data, tgt)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = ravel(cfg, init_unconstrained(cfg, data, gen, batch_shape=(B,)))
+    h = obj.hessian(q)
+    h.diagonal(dim1=1, dim2=2).add_(1.0)
+    g = obj.value_and_grad(q)[1]
+    ms = {"hessian": cuda_ms(lambda: obj.hessian(q), 3),
+          "solve": cuda_ms(lambda: torch.linalg.solve(h, g), 3),
+          "value_and_grad": cuda_ms(lambda: obj.value_and_grad(q), 10)}
+    print(f"map polish pieces (B={B}, D={q.shape[1]}, float32, ms a call): "
+          f"{json.dumps(ms)} [{card}]")
+    del h, obj
+    torch.cuda.empty_cache()
+
+
+def phase_map_parity(card):
+    """float64, 8 spectra, from the same starts (numpy-made Stan-random
+    rows, the x, R_inf and inductance entries from the batched ridge on the
+    CPU). On the card, run_lbfgs replays CUDA graphs: over MAP_PARITY_ITER
+    iterations it must equal the eager form there bit for bit. Card
+    against CPU: run_lbfgs at MAP_PARITY_SHORT (value within 1e-9
+    relative, parameters within 1e-6 of each row's largest entry, counts
+    equal; at MAP_PARITY_ITER the two devices' iterates have drifted
+    apart, and only their value gap is printed); newton_polish on both
+    devices from the CPU's MAP_PARITY_ITER iterate (value within 1e-9
+    relative, the coefficients, R_inf and inductance within 1e-6 of each
+    row's largest; its iteration counts and certificates are printed, not
+    held: the last accept/reject steps sit at the gradient's rounding
+    floor). Every differing row is printed."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.map import _LBFGS, newton_polish, run_lbfgs
+    from bayes_drt_tpu_torch.models.posterior import constrain, unravel
+    from bayes_drt_tpu_torch.parallel import batch
+    # LAPACK's threaded LU can stall on some CPU builds; one thread is
+    # enough for 8 rows
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        freq, Zb = sim.make_benchmark_batch(MAP_PARITY_B, circuit="ZARC",
+                                            noise_level=0.0025, seed=4)
+        Zd = np.ascontiguousarray(Zb[:, np.argsort(freq)[::-1]])
+        f_desc = np.sort(freq)[::-1]
+        objs = {}
+        for dev in ("cpu", "cuda"):
+            _, _, _, cfg, data = batch._build_shared(
+                f_desc, mode="optimize", dtype=torch.float64, device=dev)
+            z_scales, tgt = batch._scaled_targets(Zd, MAP_PARITY_B, None,
+                                                  torch.float64, dev)
+            objs[dev] = batch.MapObjective(cfg, data, tgt)
+        spec = objs["cpu"].spec
+        iv_x, iv_r, iv_l = batch._ridge_init_values(
+            f_desc, Zd, MAP_PARITY_B, z_scales, spec.K, None, torch.float64,
+            "cpu")
+        q0 = np.random.default_rng(8).uniform(-2.0, 2.0,
+                                              (MAP_PARITY_B, spec.D))
+        q0[:, spec.off_x:spec.off_x + spec.K] = np.where(iv_x == 0.0, 1e-8,
+                                                         iv_x)
+        q0[:, spec.off_rinf] = np.log(np.maximum(iv_r, 1e-10))
+        q0[:, spec.off_induc] = np.log(np.maximum(iv_l, 1e-10))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            obj = objs[dev]
+            x0 = torch.tensor(q0, device=dev)
+            t0 = time.perf_counter()
+            long = run_lbfgs(obj.value_and_grad, x0,
+                             max_iter=MAP_PARITY_ITER)
+            short = run_lbfgs(obj.value_and_grad, x0,
+                              max_iter=MAP_PARITY_SHORT)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] = [long, short, time.perf_counter() - t0]
+            if dev == "cuda":
+                eager = _LBFGS(obj.value_and_grad, x0, MAP_PARITY_ITER, 1e-8,
+                               1e-13, 10, 40, graphs=False).run()
+                same = all(torch.equal(a, b) for a, b in zip(long, eager))
+                gap = max(float((a.double() - b.double()).abs().max())
+                          for a, b in zip(long, eager))
+                print(f"parity map: float64 L-BFGS as CUDA graphs vs eager "
+                      f"on the card over {MAP_PARITY_ITER} iterations, "
+                      f"largest difference {gap:.3e}")
+                if not same:
+                    raise AssertionError("parity map: graph replay differs "
+                                         "from eager on the card")
+        start = runs["cpu"][0].params
+        for dev in ("cuda", "cpu"):
+            obj = objs[dev]
+            t0 = time.perf_counter()
+            pol = newton_polish(obj.value_and_grad, obj.hessian,
+                                start.to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] += [pol, time.perf_counter() - t0]
+    finally:
+        torch.set_num_threads(threads)
+    cfg, data = objs["cpu"].cfg, objs["cpu"].data
+
+    def host(r):
+        return {k: getattr(r, k).cpu() for k in r._fields}
+
+    def rel_rows(a, b):
+        return ((a - b).abs().max(dim=1).values
+                / b.abs().max(dim=1).values.clamp_min(1e-300))
+
+    def coefs(params):
+        c = constrain(cfg, data, unravel(cfg, params))
+        return torch.cat([c["x_0"], c["Rinf"][:, None], c["induc"][:, None]],
+                         dim=1)
+
+    c, h = host(runs["cuda"][0]), host(runs["cpu"][0])
+    report = {"lbfgs_long_value_gap_not_held": float(
+        ((c["value"] - h["value"]).abs() / h["value"].abs()).max())}
+    failed = []
+    for i, name in ((1, "lbfgs_short"), (3, "polish")):
+        c, h = host(runs["cuda"][i]), host(runs["cpu"][i])
+        v_rel = (c["value"] - h["value"]).abs() / h["value"].abs()
+        p_rel = (rel_rows(coefs(c["params"]), coefs(h["params"]))
+                 if name == "polish" else rel_rows(c["params"], h["params"]))
+        counts_ok = ((c["n_iter"] == h["n_iter"])
+                     & (c["converged"] == h["converged"]))
+        bars_ok = (v_rel <= 1e-9) & (p_rel <= 1e-6)
+        report[name] = {"value_rel_max": float(v_rel.max()),
+                        "params_rel_max": float(p_rel.max()),
+                        "n_iter_cuda": c["n_iter"].tolist(),
+                        "n_iter_cpu": h["n_iter"].tolist(),
+                        "converged_cuda": int(c["converged"].sum()),
+                        "converged_cpu": int(h["converged"].sum())}
+        for r in torch.nonzero(~(counts_ok & bars_ok)).flatten().tolist():
+            print(f"parity map {name}: row {r} differs: n_iter "
+                  f"{int(c['n_iter'][r])}/{int(h['n_iter'][r])}, converged "
+                  f"{bool(c['converged'][r])}/{bool(h['converged'][r])}, "
+                  f"value rel {float(v_rel[r]):.2e}, params rel "
+                  f"{float(p_rel[r]):.2e}")
+        # the polish's last steps sit at the gradient's rounding floor, so
+        # its counts and certificates are printed, not held
+        held = bars_ok if name == "polish" else counts_ok & bars_ok
+        if not bool(held.all()):
+            failed.append(name)
+    report["seconds"] = {dev: {"lbfgs": runs[dev][2], "polish": runs[dev][4]}
+                         for dev in runs}
+    print(f"parity map: float64, {MAP_PARITY_B} spectra, D={spec.D}: "
+          + json.dumps(report) + f" [{card}]")
+    if failed:
+        raise AssertionError(f"parity map: card and CPU differ in {failed}")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -847,9 +1199,11 @@ def main(argv):
     traj = phase_traj_f32(card, state)
     esc = phase_escalation(card)
     dflt = phase_default(card)
-    launches = {k: launches[k] + esc[k] + dflt[k] for k in launches}
     phase_nuts_timing(card, state)
     phase_parity(card, state)
+    mp = phase_map(card)
+    phase_map_parity(card)
+    launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] for k in launches}
     kernels = [
         dict(name="drt_quad", route="cuda",
              source="bayes_drt_tpu_torch/csrc/quad.cu",

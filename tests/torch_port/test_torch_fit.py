@@ -133,9 +133,9 @@ def test_entry_points_refuse_without_cuda():
 
 def test_unported_options_raise():
     freq, Zb = _batch()
-    with pytest.raises(NotImplementedError, match="optimize"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         fit_spectra_batch(freq, Zb, device="cpu",
-                          **{**KW, "mode": "optimize"})
+                          **{**KW, "outliers": True})
     for kw in (dict(sampler="chees"), dict(warm_start=object()),
                dict(precondition="pooled")):
         with pytest.raises(NotImplementedError, match="item 12"):
