@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..models.posterior import init_unconstrained, check_supported, ravel
+from ..models.posterior import init_unconstrained, ravel
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -46,15 +46,21 @@ class FlatSpec(NamedTuple):
     off_x: int = 0
 
 
+def flat_eligible(cfg) -> bool:
+    """Whether the hand-written value and gradient (and the trajectory
+    kernel) cover the model: one series distribution, no outliers, fitY or
+    SA (the Stan ``Series`` / ``Series_pos`` models)."""
+    return (len(cfg.dists) == 1 and cfg.dists[0].dist_type == "series"
+            and not (cfg.outliers or cfg.fitY or cfg.sa))
+
+
 def flat_spec_for(cfg, data) -> FlatSpec:
     """FlatSpec of an eligible posterior, with the offsets discovered from
     the layout of ``init_unconstrained`` (marker per parameter)."""
-    try:
-        check_supported(cfg)
-    except NotImplementedError as e:
+    if not flat_eligible(cfg):
         raise ValueError(
             "the fused trajectory supports the single series-distribution "
-            f"model family only ({e})") from None
+            f"model family only (got {cfg.model_name()})")
     gen = torch.Generator(device=data.target.device).manual_seed(0)
     template = init_unconstrained(cfg, data, gen)
     offs = {}

@@ -1,6 +1,6 @@
 """Gaussian radial basis function in y = ln(tau/tau_m) space, its
-derivatives and its penalty inner products (torch port of
-bayes_drt_tpu/ops/basis.py:14,45,80)."""
+derivatives and its penalty inner products, and the Cole-Cole basis of the
+simulator (torch port of bayes_drt_tpu/ops/basis.py:14,19,45,80)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,14 @@ import torch
 def gaussian_rbf(y, epsilon):
     """phi(y) = exp(-(eps*y)^2)."""
     return torch.exp(-((epsilon * y) ** 2))
+
+
+def cole_cole_rbf(y, epsilon):
+    """Cole-Cole basis: sin(u) / (2 pi (cosh(eps y) - cos(u))), u = (1 -
+    eps) pi."""
+    u = (1.0 - epsilon) * math.pi
+    return (1.0 / (2.0 * math.pi)) * math.sin(u) / (torch.cosh(epsilon * y)
+                                                    - math.cos(u))
 
 
 def gaussian_rbf_dy(y, epsilon, order):

@@ -2,9 +2,9 @@
 (torch port of bayes_drt_tpu/ops/matrices.py).
 
 Default quadrature matches the reference: trapezoid on y in [-20, 20] with
-1000 points. ``construct_A`` evaluates the rule through ops/quad.py, whose
-wrapper runs the hand-written quadrature kernel on a CUDA device and the
-plain einsum form on the CPU.
+1000 points. ``construct_A`` evaluates the DRT rule through ops/quad.py,
+whose wrapper runs the hand-written quadrature kernel on a CUDA device and
+the plain einsum form on the CPU, and the DDT rule in plain torch.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from .._numerics import resolve_device, resolve_dtype
 from .basis import (gaussian_penalty_inner_product, gaussian_rbf,
                     gaussian_rbf_dy)
+from .kernels import ddt_kernel
 from .quad import drt_quad
 
 
@@ -60,26 +61,45 @@ def _omega_tau(frequencies, tau, dtype, device):
 
 def construct_A(frequencies, part, tau=None, basis: str = "gaussian",
                 epsilon=1.0, kernel: str = "DRT", dist_type: str = "series",
-                n_quad: int = 1000, y_max: float = 20.0, dtype=None,
-                device=None):
-    """A matrix: A[n, m] = int phi(y) K(y, w_n, tau_m) dy for a series DRT
-    with the Gaussian basis (the only combination ported so far), by the
-    trapezoid rule through ops/quad.py:drt_quad (the hand-written kernel
-    on a CUDA device, its plain einsum form on the CPU)."""
-    if kernel != "DRT" or dist_type != "series" or basis != "gaussian":
-        raise NotImplementedError(
-            "only the series DRT kernel with the gaussian basis is ported "
-            f"(got kernel={kernel!r}, dist_type={dist_type!r}, "
-            f"basis={basis!r})")
+                symmetry: str = "planar", bc=None, ct: bool = False,
+                k_ct=None, n_quad: int = 1000, y_max: float = 20.0,
+                dtype=None, device=None):
+    """A matrix: A[n, m] = int phi(y) K(y, w_n, tau_m) dy, by the trapezoid
+    rule on [-y_max, y_max] with the Gaussian basis. A' @ x and A'' @ x
+    give the real/imag impedance (series) or admittance (parallel)
+    contributions of the distribution.
+
+    The series DRT runs through ops/quad.py:drt_quad (the hand-written
+    kernel on a CUDA device, its plain einsum form on the CPU). A DDT
+    (``symmetry``, ``bc`` -- transmissive by default -- and the charge
+    transfer ``ct`` with ``k_ct``) is plain torch on the device: the (N, K,
+    Q) complex integrand contracted with the trapezoid weights, as the JAX
+    package builds it outside any Pallas kernel."""
+    if basis != "gaussian":
+        raise NotImplementedError(f"only the gaussian basis is ported "
+                                  f"(got {basis!r})")
     if part not in ("real", "imag"):
         raise ValueError(f"Invalid part {part!r}")
+    if ct and k_ct is None:
+        raise ValueError("k_ct must be supplied if ct==True")
     dev = resolve_device(device)
     dt = resolve_dtype(torch.float64 if dtype is None else dtype)
     omega, tau_t = _omega_tau(frequencies, tau, dt, dev)
     y, w = _quad_grid(n_quad, y_max, dt, dev)
-    phiw = gaussian_rbf(y, float(epsilon)) * w
-    s = torch.log(omega[:, None] * tau_t[None, :])
-    return drt_quad(s, y, phiw, part)
+    phi = gaussian_rbf(y, float(epsilon))
+    if kernel == "DRT":
+        if dist_type != "series":
+            raise ValueError("dist_type for DRT kernel must be series")
+        s = torch.log(omega[:, None] * tau_t[None, :])
+        return drt_quad(s, y, phi * w, part)
+    if kernel != "DDT":
+        raise ValueError(f"Invalid kernel {kernel!r}. Options are DRT and "
+                         "DDT")
+    f = ddt_kernel(y[None, None, :], omega[:, None, None],
+                   tau_t[None, :, None], part, dist_type, symmetry,
+                   "transmissive" if bc is None else bc, bool(ct),
+                   0.0 if k_ct is None else k_ct)
+    return torch.einsum("nkq,q->nk", phi * f, w)
 
 
 def construct_L(frequencies, tau=None, basis: str = "gaussian", epsilon=1.0,

@@ -1,22 +1,26 @@
 """Batched Bayesian inversion of many spectra on one frequency grid (port
-of the single-series paths of bayes_drt_tpu/parallel/batch.py).
+of bayes_drt_tpu/parallel/batch.py).
 
-``fit_spectra_batch`` samples (``mode='sample'``) B spectra x C chains as
-one (B*C, D) chain axis through NUTS (infer/nuts.py, the default) or the
-flat-chain SHMC sampler (infer/shmc_flat.py, every draw one launch of the
-hand-written trajectory kernel), summarizes each spectrum's posterior on
-the device, and by default refits the spectra that fail the mixing gate
-with a ridge-seeded NUTS run spliced into the result. ``mode='optimize'``
-finds each spectrum's MAP point with the batched L-BFGS and Newton polish
-of infer/map.py, from random restarts or a ridge seed.
+``fit_spectra_batch`` fits any model of the distributions mini-DSL (DRT
+and DDT, series and parallel, any number of each, with or without the
+outlier error). ``mode='sample'`` samples B spectra x C chains as one
+(B*C, D) chain axis through NUTS (infer/nuts.py, the default) or, for the
+single series DRT, the flat-chain SHMC sampler (infer/shmc_flat.py, every
+draw one launch of the hand-written trajectory kernel), summarizes each
+spectrum's posterior on the device, and by default refits the spectra
+that fail the mixing gate with a ridge-seeded NUTS run spliced into the
+result. ``mode='optimize'`` finds each spectrum's MAP point with the
+batched L-BFGS and Newton polish of infer/map.py, from random restarts or
+a ridge seed. The single series DRT takes the hand-written value and
+gradient; every other model autograd of models/posterior.log_density.
 ``ridge_fit_spectra_batch`` is the batched hyper-lambda ridge
 (infer/ridge.py) that seeds both; ``predict_Z_batch`` evaluates a fit's
-impedance. The A matrices come from the hand-written quadrature kernel
-(ops/quad.py).
+impedance. A DRT's A matrices come from the hand-written quadrature
+kernel (ops/quad.py).
 
-Not ported yet: ChEES, warm starts, the pooled preconditioner,
-cross-validated and hyper-weights ridge, meshes and models beyond the
-single series DRT (outliers among them).
+Not ported yet: the generic SHMC sampler, ChEES, warm starts, the pooled
+preconditioner, the ridge seed of a single parallel distribution,
+cross-validated and hyper-weights ridge, ragged batches and meshes.
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ from ..infer.map import newton_polish, run_lbfgs, run_lbfgs_restarts
 from ..infer.nuts import NUTSConfig, sample_nuts
 from ..infer.ridge import (HyperLambdaConfig, RidgeData, run_hyper_lambda,
                            run_ordinary_ridge)
-from ..infer.shmc_flat import (flat_shared_for, flat_spec_for,
-                               flat_value_and_grad, sample_shmc_flat)
-from ..models.build import build_posterior, z_scale_for
-from ..models.posterior import (constrain, init_unconstrained, log_density,
+from ..infer.shmc_flat import (flat_eligible, flat_shared_for,
+                               flat_spec_for, flat_value_and_grad,
+                               sample_shmc_flat)
+from ..models.build import build_posterior, sort_distributions, z_scale_for
+from ..models.posterior import (constrain, flat_dim, init_unconstrained,
+                                log_density, posterior_value_and_grad,
                                 predict_target, ravel, unravel)
 from ..ops.matrices import (construct_A, construct_L, construct_M,
                             default_epsilon, get_tau_basis)
@@ -124,7 +130,10 @@ def _make_summarize(cfg, chains, samples):
     divergence/accept statistics, bulk ESS of logp and gamma monitors,
     rank-normalized Rhat/ESS over all parameters (d_chunk=32 blocking), the
     metric-normalized largest posterior eigenvalue, optional pointwise
-    gamma bands and the posterior-predictive impedance."""
+    gamma bands, the posterior-predictive impedance (the mean over draws of
+    each draw's prediction, through the parallel inversion) and the
+    posterior-mean coefficients of every further distribution
+    (``coef_<i>``)."""
 
     def summarize(dat, draws, info, phi_mon, phi_eval):
         bc, _, _, d = draws.shape                     # (Bc, C, S, D)
@@ -185,66 +194,134 @@ def _make_summarize(cfg, chains, samples):
             out["gamma_eval_mean"] = ge.mean(dim=1)
             out["gamma_eval_lo"] = _percentile(ge, 2.5, dim=1)
             out["gamma_eval_hi"] = _percentile(ge, 97.5, dim=1)
-        preds = predict_target(cfg, dat, c)
-        out["z_hat_mean"] = preds.mean(dim=1)
-        out["z_hat_std"] = preds.std(dim=1, correction=0)
+        if not cfg.fitY:
+            preds = predict_target(cfg, dat, c)
+            out["z_hat_mean"] = preds.mean(dim=1)
+            out["z_hat_std"] = preds.std(dim=1, correction=0)
+        for i in range(1, len(cfg.dists)):
+            out[f"coef_{i}"] = c[f"x_{i}"].mean(dim=1)
         return out
 
     return summarize
 
 
+def _normalize_distributions(distributions):
+    """Light normalization of the distributions mini-DSL with the JAX
+    package's defaults (a DDT's ``bc`` defaults to 'blocking', not
+    construct_A's 'transmissive'); default: one series DRT."""
+    if distributions is None:
+        return {"DRT": {"kernel": "DRT", "dist_type": "series"}}
+    distributions = {k: dict(v) for k, v in distributions.items()}
+    for info in distributions.values():
+        if info.get("kernel") == "DRT":
+            info.setdefault("dist_type", "series")
+        else:
+            info.setdefault("dist_type", "parallel")
+            info.setdefault("symmetry", "planar")
+            info.setdefault("bc", "blocking")
+            info.setdefault("ct", False)
+    return distributions
+
+
 def _build_shared(frequencies, mode="sample", basis_freq=None, epsilon=None,
                   nonneg=False, dtype=None, ncp=False, sigma_min=0.002,
+                  distributions=None, basis="gaussian", outliers=False,
                   device=None):
-    """Matrices at the common (descending) frequency grid for the single
-    series DRT (basis at ``basis_freq``, default from the grid), and the
-    ``mode`` posterior built from them. A is integrated in float64 by
-    ops/quad.py (two kernel launches on a CUDA device)."""
+    """Matrices at the common (descending) frequency grid for every
+    distribution of ``distributions`` (default: one series DRT), each with
+    its own ``basis_freq`` / ``epsilon`` (falling back to the arguments,
+    then to the grid), and the ``mode`` posterior built from them. A DRT's
+    A is integrated in float64 by ops/quad.py (two kernel launches on a
+    CUDA device), a DDT's in plain torch. Returns (frequencies, tau and
+    epsilon of the first distribution, cfg, data, the normalized
+    distributions, each carrying its grid under ``_tau`` / ``_epsilon``)."""
     dev = resolve_device(device)
     frequencies = np.sort(np.asarray(frequencies, float))[::-1]
-    if basis_freq is None:
-        tau = get_tau_basis(frequencies)
-    else:
-        tau = 1.0 / (2 * np.pi * np.asarray(basis_freq, float))
-    eps = default_epsilon(tau) if epsilon is None else float(epsilon)
-    f_coll = 1.0 / (2 * np.pi * tau)
-    kw = dict(tau=tau, epsilon=eps, dtype=torch.float64, device=dev)
-    mats = {"A_re": construct_A(frequencies, "real", **kw),
-            "A_im": construct_A(frequencies, "imag", **kw)}
-    for o in (0, 1, 2):
-        mats[f"L{o}"] = construct_L(f_coll, order=o, **kw)
-    dists = {"DRT": {"kernel": "DRT", "dist_type": "series"}}
+    distributions = _normalize_distributions(distributions)
+    dist_mats = {}
+    first = None
+    for name, info in distributions.items():
+        bf = info.get("basis_freq", basis_freq)
+        if bf is None:
+            tau = get_tau_basis(frequencies)
+        else:
+            tau = 1.0 / (2 * np.pi * np.asarray(bf, float))
+        eps = info.get("epsilon", epsilon)
+        eps = default_epsilon(tau) if eps is None else float(eps)
+        f_coll = 1.0 / (2 * np.pi * tau)
+        kw = dict(tau=tau, epsilon=eps, basis=info.get("basis", basis),
+                  dtype=torch.float64, device=dev)
+        akw = dict(kernel=info.get("kernel", "DRT"),
+                   dist_type=info["dist_type"],
+                   symmetry=info.get("symmetry", "planar"),
+                   bc=info.get("bc", "transmissive"),
+                   ct=info.get("ct", False), k_ct=info.get("k_ct", None))
+        mats = {"A_re": construct_A(frequencies, "real", **kw, **akw),
+                "A_im": construct_A(frequencies, "imag", **kw, **akw)}
+        for o in (0, 1, 2):
+            mats[f"L{o}"] = construct_L(f_coll, order=o, **kw)
+        dist_mats[name] = mats
+        info["_tau"], info["_epsilon"] = tau, eps
+        if first is None:
+            first = (tau, eps)
     z_dummy = np.ones(len(frequencies)) + 0j   # replaced per spectrum
-    cfg, data = build_posterior(dists, {"DRT": mats}, frequencies, z_dummy,
-                                mode=mode, nonneg=nonneg, sigma_min=sigma_min,
+    cfg, data = build_posterior(distributions, dist_mats, frequencies,
+                                z_dummy, mode=mode, nonneg=nonneg,
+                                outliers=outliers, sigma_min=sigma_min,
                                 dtype=dtype, ncp=ncp, device=dev)
-    return frequencies, tau, eps, cfg, data
+    return (frequencies,) + first + (cfg, data, distributions)
+
+
+def _dist_geometry(dists_norm):
+    """Each distribution's kernel and grid in the posterior's order (series
+    first, then parallel, each by name: the order of coef and coef_<i>),
+    from which predict_Z_batch rebuilds A at new frequencies."""
+    return tuple(
+        {"name": nm, "kernel": dists_norm[nm].get("kernel", "DRT"),
+         "dist_type": dists_norm[nm]["dist_type"],
+         "symmetry": dists_norm[nm].get("symmetry", "planar"),
+         "bc": dists_norm[nm].get("bc", "transmissive"),
+         "ct": dists_norm[nm].get("ct", False),
+         "k_ct": dists_norm[nm].get("k_ct", None),
+         "basis": dists_norm[nm].get("basis", "gaussian"),
+         "tau": dists_norm[nm]["_tau"],
+         "epsilon": dists_norm[nm]["_epsilon"]}
+        for nm in sort_distributions(dists_norm))
 
 
 class MapObjective:
-    """The MAP loss of the single series DRT on (R, D) rows of
-    unconstrained parameters, row i fitting ``targets[i]`` (R, 2n): minus
-    the log posterior without the transforms' Jacobian (Stan's
-    ``optimizing`` objective). ``value_and_grad`` is the hand-written
-    gradient of infer/shmc_flat.py; ``hessian`` is autograd of
-    models/posterior.log_density, as the JAX package takes
+    """The MAP loss on (R, D) rows of unconstrained parameters, row i
+    fitting ``targets[i]`` (R, 2n): minus the log posterior without the
+    transforms' Jacobian (Stan's ``optimizing`` objective).
+    ``value_and_grad`` is the hand-written gradient of infer/shmc_flat.py
+    for the single series DRT and autograd of models/posterior.log_density
+    (one backward pass over all rows) for every other model; ``hessian``
+    is autograd of log_density for every model, as the JAX package takes
     ``jax.hessian``: reverse over reverse (torch.func.jacrev twice), since
-    torch.func.hessian's forward-over-reverse fails on a float32 matmul
-    (a float64 tangent) and is slower. Both take the rows' indices into
+    torch.func.hessian's forward-over-reverse fails on a float32 matmul (a
+    float64 tangent) and is slower. Both take the rows' indices into
     ``targets`` (all rows when None)."""
 
     def __init__(self, cfg, data, targets):
         self.cfg, self.data, self.targets = cfg, data, targets
-        self.spec = flat_spec_for(cfg, data)
-        self.shared = flat_shared_for(cfg, data, targets.dtype)
+        self.flat = flat_eligible(cfg)
+        if self.flat:
+            self.spec = flat_spec_for(cfg, data)
+            self.shared = flat_shared_for(cfg, data, targets.dtype)
 
     def _targets(self, rows):
         return self.targets if rows is None else self.targets[rows]
 
     def value_and_grad(self, q, rows=None):
-        sh = self.shared
-        lp, g = flat_value_and_grad(self.spec, sh.A, sh.L, sh.vecs, sh.scal,
-                                    q, self._targets(rows), jacobian=False)
+        if self.flat:
+            sh = self.shared
+            lp, g = flat_value_and_grad(self.spec, sh.A, sh.L, sh.vecs,
+                                        sh.scal, q, self._targets(rows),
+                                        jacobian=False)
+        else:
+            lp, g = posterior_value_and_grad(self.cfg, self.data,
+                                             self._targets(rows),
+                                             jacobian=False)(q)
         return -lp, -g
 
     def hessian(self, q, rows=None):
@@ -261,10 +338,11 @@ class MapObjective:
 def _ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
                        ridge_kw, dtype, device, basis_freq=None,
                        epsilon=None):
-    """Per-spectrum ridge-seeded init values for a single series DRT: one
-    batched hyper-lambda ridge pass over the real spectra, padded like the
-    batch, in the scaled coordinates init_unconstrained expects (x, and
-    R_inf and inductance before their x100 / induc_scale transforms)."""
+    """Per-spectrum ridge-seeded init values for a single series
+    distribution: one batched hyper-lambda ridge pass over the real
+    spectra, padded like the batch, in the scaled coordinates
+    init_unconstrained expects (x, and R_inf and inductance before their
+    x100 / induc_scale transforms)."""
     rdefaults = dict(penalty="integral", hyper_lambda=True, lambda_0=1.0,
                      hl_beta=5, weights="modulus")
     rdefaults.update(ridge_kw or {})
@@ -284,9 +362,48 @@ def _ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
     return iv_x, iv_rinf, iv_induc
 
 
+def _outlier_seed(iv_x, iv_rinf, iv_induc, targets, data):
+    """The outlier model's sigma_out seed from a ridge solution: 1.0 at the
+    frequencies whose real or imaginary ridge residual exceeds 3 standard
+    deviations of the spectrum's residuals, 0.1 elsewhere (a z-score form
+    of the reference's IQR check). numpy, (b, n)."""
+    freq = data.freq.cpu().numpy()
+    n_f = len(freq)
+    rv = np.concatenate([np.ones(n_f), np.zeros(n_f)])
+    lv = np.concatenate([np.zeros(n_f), 2.0 * np.pi * freq])
+    zhat = (iv_x @ data.A[0].cpu().numpy().T
+            + (iv_rinf * 100.0)[:, None] * rv[None, :]
+            + iv_induc[:, None] * lv[None, :])
+    resid = targets.cpu().numpy() - zhat
+    sig = resid.std(axis=1, keepdims=True) + 1e-12
+    flag = ((np.abs(resid[:, :n_f]) > 3 * sig)
+            | (np.abs(resid[:, n_f:]) > 3 * sig))
+    return np.where(flag, 1.0, 0.1)
+
+
+def _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data, targets,
+                ridge_kw, dtype, device, basis_freq, epsilon, outliers):
+    """init_unconstrained's init_values from the batched ridge, (b, ...)
+    rows: x_0, Rinf_raw, induc_raw and, with ``outliers``, the 3-sigma
+    sigma_out_raw seed."""
+    iv_x, iv_rinf, iv_induc = _ridge_init_values(
+        frequencies, Z_batch, b_real, z_scales, cfg.dists[0].K, ridge_kw,
+        dtype, device, basis_freq=basis_freq, epsilon=epsilon)
+    iv = {"x_0": iv_x, "Rinf_raw": iv_rinf, "induc_raw": iv_induc}
+    if outliers:
+        iv["sigma_out_raw"] = _outlier_seed(iv_x, iv_rinf, iv_induc,
+                                            targets, data)
+    return iv
+
+
 def _per_spectrum(x, b, chains):
     """(T, b*chains, ...) per-draw rows -> (b, chains, T, ...)."""
     return x.reshape((x.shape[0], b, chains) + x.shape[2:]).movedim(0, 2)
+
+
+_ITEM_10 = "is not ported yet (ROADMAP Queue 1 item 10)"
+_ITEM_11 = ("needs the per-spectrum admittance ridge of a single parallel "
+            "distribution, which is not ported yet (ROADMAP Queue 1 item 11)")
 
 
 def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
@@ -298,10 +415,12 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                       init_from_ridge: bool = False,
                       ridge_kw: Optional[dict] = None,
                       random_seed: int = 0, max_tree_depth: int = 10,
-                      dtype=None, precondition: Optional[str] = None,
+                      dtype=None, distributions=None,
+                      precondition: Optional[str] = None,
                       ncp: bool = False, unroll: int = 1,
                       flat_tree: bool = False, tree_scan: bool = False,
-                      scan_unroll: int = 1, gamma_eval_tau=None,
+                      scan_unroll: int = 1, basis: str = "gaussian",
+                      gamma_eval_tau=None, monitor_thin: int = 0,
                       z_scale=None, sigma_min: float = 0.002,
                       sampler: str = "nuts", shmc_cfg=None,
                       warm_start=None, quality: Optional[str] = None,
@@ -309,9 +428,20 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                       escalate_gate: Optional[dict] = None,
                       escalate_kw: Optional[dict] = None,
                       timing: bool = False, device=None) -> BatchFitResult:
-    """Fit B spectra sharing one frequency grid (single series DRT, basis
-    at ``basis_freq`` with inverse length scale ``epsilon``, both from the
-    grid by default; ``sigma_min`` is the error model's floor).
+    """Fit B spectra sharing one frequency grid. ``distributions`` uses the
+    Inverter mini-DSL (default: one series DRT): any number of series and
+    parallel DRT/DDT distributions, each with its own ``basis_freq``,
+    ``epsilon``, ``x_scale`` (parallel), DDT ``symmetry``/``bc``/``ct``;
+    the basis is at ``basis_freq`` with inverse length scale ``epsilon``
+    unless a distribution says otherwise, both from the grid by default;
+    ``sigma_min`` is the error model's floor, ``nonneg`` makes series
+    coefficients nonnegative and ``outliers`` adds the per-frequency
+    outlier error (the ``_outliers`` models). ``coef`` holds the first
+    distribution in the posterior's order (series first, then parallel,
+    each by name), the others are under ``diagnostics['coef_<i>']``;
+    series coefficients are in impedance units, parallel ones in
+    admittance units. ``diagnostics['dist_geometry']`` records each
+    distribution's kernel and grid.
 
     ``mode='optimize'`` finds each spectrum's MAP point: L-BFGS from
     ``n_restarts`` Stan-random starts (all B * n_restarts runs as one row
@@ -333,14 +463,21 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     ``scan_unroll`` tune the JAX package's compiled loops and have no
     effect here. ``sampler='shmc'`` runs the flat-chain SHMC sampler, one
     launch of the hand-written trajectory kernel per draw, with
-    ``shmc_cfg``. Runs on CUDA unless ``device`` says otherwise, float32
-    unless ``dtype`` says otherwise; random numbers come from a
-    torch.Generator seeded with ``random_seed``.
+    ``shmc_cfg`` (the single series DRT only). Runs on CUDA unless
+    ``device`` says otherwise, float32 unless ``dtype`` says otherwise;
+    random numbers come from a torch.Generator seeded with
+    ``random_seed``. The single series DRT without outliers takes the
+    hand-written value and gradient (infer/shmc_flat.py); every other
+    model autograd of models/posterior.log_density.
 
-    ``init_from_ridge`` (NUTS): every chain starts at the coordinates of a
-    batched hyper-lambda ridge solution (``ridge_kw`` overrides its
-    defaults), the other parameters Stan-random. ``z_scale`` overrides the
-    data-derived per-spectrum scale.
+    ``init_from_ridge`` (a single series distribution): every chain, or
+    the one L-BFGS run, starts at the coordinates of a batched
+    hyper-lambda ridge solution (``ridge_kw`` overrides its defaults), the
+    other parameters Stan-random; with ``outliers``, ``sigma_out`` starts
+    high at the frequencies whose ridge residual exceeds 3 standard
+    deviations. ``z_scale`` overrides the data-derived per-spectrum scale
+    (for a single parallel planar DDT the rule targets the calibrated
+    admittance std Y*).
 
     ``quality``: a named preset of QUALITY_PRESETS overriding the sampler
     choice and budget ('fast': the bench's SHMC configuration; 'strict':
@@ -348,10 +485,11 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
 
     ``escalate``: refit spectra that fail the per-spectrum mixing gate
     (``escalation_mask``; ``escalate_gate`` overrides its thresholds) with
-    NUTS max_depth=8, tree_scan, seeded from the ridge solution
-    (``escalate_kw`` overrides the refit's arguments), and splice the refit
-    into the result; ``diagnostics['escalated']`` records the mask. The
-    default None is on for ``sampler='shmc'`` and for NUTS without
+    NUTS max_depth=8, tree_scan, seeded from the ridge solution when the
+    model has one distribution (``escalate_kw`` overrides the refit's
+    arguments), and splice the refit into the result;
+    ``diagnostics['escalated']`` records the mask. The default None is on
+    for ``sampler='shmc'`` and for single-distribution NUTS without
     ``init_from_ridge``.
 
     ``timing`` records host-clock spans closed by a device synchronize
@@ -362,7 +500,11 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     (``diagnostics['draw_s']``) and the escalation refit's seconds
     (``diagnostics['refit_s']``).
 
-    ``outliers=True`` (the outlier model) is not ported yet and raises.
+    Not ported (they raise, naming their ROADMAP item): ``sampler='shmc'``
+    and the 'fast' preset beyond the single series DRT and bases other
+    than 'gaussian' and ``monitor_thin`` (item 10); a ridge seed of a
+    single parallel distribution, so its default escalation too (item
+    11); ChEES, ``warm_start`` and ``precondition`` (item 12).
     """
     if quality is not None:
         if quality not in QUALITY_PRESETS:
@@ -384,9 +526,20 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if mode not in ("sample", "optimize"):
         raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
                          "'optimize'")
-    if outliers:
-        raise NotImplementedError("outliers=True is not ported yet (ROADMAP "
-                                  "Queue 1 item 10)")
+    if basis != "gaussian":
+        raise NotImplementedError(f"basis={basis!r} {_ITEM_10}")
+    if monitor_thin:
+        raise NotImplementedError(f"monitor_thin {_ITEM_10}")
+    dists = _normalize_distributions(distributions)
+    n_dists = len(dists)
+    single_parallel = (n_dists == 1 and next(iter(dists.values()))[
+        "dist_type"] == "parallel")
+    if init_from_ridge:
+        if n_dists > 1:
+            raise ValueError("Ridge initialization can only be performed "
+                             "for single-distribution fits")
+        if single_parallel:
+            raise NotImplementedError(f"init_from_ridge {_ITEM_11}")
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     phases = {}
@@ -405,11 +558,14 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     frequencies = np.asarray(frequencies, float)[order]
     Z_batch, b_real = _pad_pow2(Z_batch[:, order])
     b = Z_batch.shape[0]
+    setup_kw = dict(basis_freq=basis_freq, epsilon=epsilon, nonneg=nonneg,
+                    sigma_min=sigma_min, distributions=distributions,
+                    outliers=outliers)
     if mode == "optimize":
-        return _fit_map(frequencies, Z_batch, b_real, basis_freq, epsilon,
-                        nonneg, sigma_min, z_scale, dt, dev, random_seed,
-                        init_from_ridge, ridge_kw, n_restarts, max_iter,
-                        polish, mark, phases if timing else None)
+        return _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dt,
+                        dev, random_seed, init_from_ridge, ridge_kw,
+                        n_restarts, max_iter, polish, mark,
+                        phases if timing else None)
     if sampler == "chees":
         raise NotImplementedError("sampler='chees' is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")
@@ -421,9 +577,32 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         if val is not None:
             raise NotImplementedError(f"{name}= is not ported yet (ROADMAP "
                                       "Queue 1 item 12)")
+    flat = (n_dists == 1 and not single_parallel and not outliers)
+    if sampler == "shmc" and not flat:
+        raise NotImplementedError(
+            "sampler='shmc' beyond the single series DRT needs the generic "
+            f"sample_shmc, which {_ITEM_10}")
     if init_from_ridge and sampler == "shmc":
         raise ValueError("init_from_ridge does not support the flat-chain "
                          "SHMC sampler; use sampler='nuts'")
+    # the escalation's refit, resolved up front so that a refit the port
+    # cannot run raises before the fit, not after a spectrum is flagged
+    if escalate is None:
+        escalate = (warm_start is None
+                    and (sampler == "shmc"
+                         or (sampler == "nuts" and n_dists == 1
+                             and not init_from_ridge)))
+    esc_kw = dict(sampler="nuts", max_tree_depth=8, tree_scan=True,
+                  scan_unroll=2, ncp=ncp)
+    if n_dists == 1:
+        # the refit's chains start from a ridge solution: stuck chains are
+        # an initialization pathology, not a trajectory-length one
+        esc_kw["init_from_ridge"] = True
+    esc_kw.update(escalate_kw or {})
+    if escalate and single_parallel and esc_kw.get("init_from_ridge"):
+        raise NotImplementedError(
+            f"the default escalation refit (escalate=None or True) {_ITEM_11}"
+            "; pass escalate=False")
     if sampler == "shmc":
         sh_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
         sh_cfg.validate()
@@ -432,10 +611,10 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                               flat_tree=flat_tree, tree_scan=tree_scan,
                               scan_unroll=scan_unroll)
         nuts_cfg.validate()
-    frequencies, tau, eps, cfg, data = _build_shared(
-        frequencies, basis_freq=basis_freq, epsilon=epsilon, nonneg=nonneg,
-        dtype=dt, ncp=ncp, sigma_min=sigma_min, device=dev)
-    z_scales, targets = _scaled_targets(Z_batch, b_real, z_scale, dt, dev)
+    frequencies, tau, eps, cfg, data, dists_norm = _build_shared(
+        frequencies, dtype=dt, ncp=ncp, device=dev, **setup_kw)
+    z_scales, targets = _scaled_targets(Z_batch, b_real, z_scale, dt, dev,
+                                        dists_norm)
 
     k0 = len(tau)
     mon_idx = np.unique(np.linspace(0, k0 - 1, 8).astype(int))
@@ -448,23 +627,30 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     else:
         phi_eval = torch.zeros((0, k0), dtype=dt, device=dev)
 
-    spec = flat_spec_for(cfg, data)
-    shared = flat_shared_for(cfg, data, dt)
+    D = flat_dim(cfg, data.freq.shape[0])
     gen = torch.Generator(device=dev).manual_seed(int(random_seed))
     tgt_rows = targets.repeat_interleave(chains, dim=0).contiguous()
+    if flat:
+        spec = flat_spec_for(cfg, data)
+        shared = flat_shared_for(cfg, data, dt)
+
+        def vg(q):
+            return flat_value_and_grad(spec, shared.A, shared.L, shared.vecs,
+                                       shared.scal, q, tgt_rows)
+    else:
+        vg = posterior_value_and_grad(cfg, data, tgt_rows)
     mark("setup")
     init_values = None
     if init_from_ridge:
-        iv_x, iv_rinf, iv_induc = _ridge_init_values(
-            frequencies, Z_batch, b_real, z_scales, spec.K, ridge_kw, dt,
-            dev, basis_freq=basis_freq, epsilon=epsilon)
-        init_values = {"x_0": iv_x[:, None, :], "Rinf_raw": iv_rinf[:, None],
-                       "induc_raw": iv_induc[:, None]}
+        iv = _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data,
+                         targets, ridge_kw, dt, dev, basis_freq, epsilon,
+                         outliers)
+        init_values = {k: v[:, None] for k, v in iv.items()}
         mark("ridge")
     q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                        batch_shape=(b, chains),
                                        init_values=init_values))
-    q0 = q0.reshape(b * chains, spec.D).contiguous()
+    q0 = q0.reshape(b * chains, D).contiguous()
 
     if sampler == "shmc":
         time_traj = timing and dev.type == "cuda"
@@ -473,10 +659,6 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                                        time_traj=time_traj)
         info["inv_mass"] = info["inv_mass"][:, None, :].expand(-1, chains, -1)
     else:
-        def vg(q):
-            return flat_value_and_grad(spec, shared.A, shared.L, shared.vecs,
-                                       shared.scal, q, tgt_rows)
-
         draws, raw = sample_nuts(vg, q0, warmup, samples, nuts_cfg,
                                  generator=gen, time_draws=timing)
         draws = _per_spectrum(draws, b, chains)
@@ -484,7 +666,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                 for k in ("logp", "accept_prob", "diverging", "n_leapfrog",
                           "energy", "warmup_diverging")}
         info["step_size"] = raw["step_size"].reshape(b, chains)
-        info["inv_mass"] = raw["inv_mass"].reshape(b, chains, spec.D)
+        info["inv_mass"] = raw["inv_mass"].reshape(b, chains, D)
         if timing:
             info["draw_s"] = raw["draw_s"]
     mark("sample")
@@ -500,49 +682,38 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
            for k in blocks[0]}
     mark("summary")
     z_scales = z_scales[:b_real]
-
-    scale0 = z_scales[:, None]
-    diagnostics = {k: out[k] for k in out
-                   if k not in ("coef", "coef_lo", "coef_hi", "r_inf",
-                                "induc")}
+    diagnostics = _rescaled_diagnostics(cfg, out, z_scales, dists_norm)
     for k_ge in ("gamma_eval_mean", "gamma_eval_lo", "gamma_eval_hi"):
         if k_ge in diagnostics:
-            diagnostics[k_ge] = diagnostics[k_ge] * scale0
+            diagnostics[k_ge] = diagnostics[k_ge] * _coef_scale(
+                cfg, 0, z_scales)
     for k_z in ("z_hat_mean", "z_hat_std"):
-        diagnostics[k_z] = diagnostics[k_z] * z_scales[:, None]
-    # the training grid (descending), where predict_Z_batch serves the
-    # draws' mean prediction
-    diagnostics["f_train"] = np.asarray(frequencies, float)
+        if k_z in diagnostics:
+            diagnostics[k_z] = diagnostics[k_z] * z_scales[:, None]
+    if "z_hat_mean" in diagnostics:
+        # the training grid (descending), where predict_Z_batch serves the
+        # draws' mean prediction
+        diagnostics["f_train"] = np.asarray(frequencies, float)
     if timing:
         for k in ("traj_ms", "draw_s"):
             if k in info:
                 diagnostics[k] = np.asarray(info[k])
         diagnostics["phase_s"] = phases
+    scale0 = _coef_scale(cfg, 0, z_scales)
     result = BatchFitResult(
         coef=out["coef"] * scale0, r_inf=out["r_inf"] * z_scales,
         inductance=out["induc"] * z_scales,
         gamma_lo=out["coef_lo"] * scale0, gamma_hi=out["coef_hi"] * scale0,
-        z_scales=z_scales, tau=tau, epsilon=eps, diagnostics=diagnostics)
+        z_scales=z_scales, tau=tau, epsilon=eps, diagnostics=diagnostics,
+        basis=basis)
 
     # ---- gate-triggered escalation: refit the under-mixed tail ----
-    # default on for the fixed-trajectory sampler (the flat-chain sampler
-    # stands in for the JAX package's default sample_shmc path) and for
-    # NUTS unless the fit is already ridge-seeded
-    if escalate is None:
-        escalate = (warm_start is None
-                    and (sampler == "shmc"
-                         or (sampler == "nuts" and not init_from_ridge)))
     if escalate:
         gate_kw = dict(n_draws=chains * samples)
         gate_kw.update(escalate_gate or {})
         esc_mask = escalation_mask(diagnostics, b_real, **gate_kw)
         diagnostics["escalated"] = esc_mask
         if esc_mask.any():
-            # the refit's chains start from a ridge solution: stuck chains
-            # are an initialization pathology, not a trajectory-length one
-            esc_kw = dict(sampler="nuts", max_tree_depth=8, tree_scan=True,
-                          scan_unroll=2, ncp=ncp, init_from_ridge=True)
-            esc_kw.update(escalate_kw or {})
             sub_z_scale = None
             if z_scale is not None:
                 sub_z_scale = np.broadcast_to(
@@ -555,23 +726,52 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
             sub = fit_spectra_batch(
                 frequencies, Z_batch[:b_real][esc_mask], mode="sample",
                 basis_freq=basis_freq, epsilon=epsilon, nonneg=nonneg,
-                chains=chains, warmup=warmup, samples=samples,
-                random_seed=random_seed + 1, gamma_eval_tau=gamma_eval_tau,
-                z_scale=sub_z_scale, sigma_min=sigma_min, dtype=dtype,
-                escalate=False, timing=timing, device=dev, **esc_kw)
+                outliers=outliers, chains=chains, warmup=warmup,
+                samples=samples, random_seed=random_seed + 1,
+                distributions=distributions, basis=basis,
+                gamma_eval_tau=gamma_eval_tau, z_scale=sub_z_scale,
+                sigma_min=sigma_min, dtype=dtype, escalate=False,
+                timing=timing, device=dev, **esc_kw)
             if timing:
                 diagnostics["refit_s"] = time.perf_counter() - t_refit
             result = _splice_results(result, sub, esc_mask)
     return result
 
 
-def _scaled_targets(Z_batch, b_real, z_scale, dtype, device):
-    """Per-spectrum Z scales (data-derived, or ``z_scale`` for the real
-    rows and the last of it for the padding) and the scaled stacked
-    [Re | Im] targets (b, 2n)."""
+def _coef_scale(cfg, i, z_scales):
+    """(b, 1) factor from scaled to physical coefficients of distribution
+    i: series coefficients multiply by the Z scale, parallel (admittance)
+    ones divide."""
+    if cfg.dists[i].dist_type == "parallel":
+        return 1.0 / z_scales[:, None]
+    return z_scales[:, None]
+
+
+def _rescaled_diagnostics(cfg, out, z_scales, dists_norm):
+    """Every per-spectrum output but the result's own fields, the further
+    distributions' coefficients (``coef_<i>``) rescaled, and the
+    distributions' geometry."""
+    diagnostics = {k: out[k] for k in out
+                   if k not in ("coef", "coef_lo", "coef_hi", "r_inf",
+                                "induc")}
+    for i in range(1, len(cfg.dists)):
+        diagnostics[f"coef_{i}"] = (diagnostics[f"coef_{i}"]
+                                    * _coef_scale(cfg, i, z_scales))
+    diagnostics["dist_geometry"] = _dist_geometry(dists_norm)
+    return diagnostics
+
+
+def _scaled_targets(Z_batch, b_real, z_scale, dtype, device,
+                    distributions=None):
+    """Per-spectrum Z scales (the data-derived rule of ``distributions``,
+    default one series DRT, or ``z_scale`` for the real rows and the last
+    of it for the padding) and the scaled stacked [Re | Im] targets
+    (b, 2n)."""
     b = Z_batch.shape[0]
     if z_scale is None:
-        z_scales = z_scale_for({"DRT": {"dist_type": "series"}}, Z_batch)
+        z_scales = np.atleast_1d(z_scale_for(
+            _normalize_distributions(distributions), Z_batch,
+            fit_type="map"))
     else:
         zs = np.broadcast_to(np.asarray(z_scale, float), (b_real,))
         z_scales = np.concatenate([zs, np.full(b - b_real, zs[-1])])
@@ -581,30 +781,29 @@ def _scaled_targets(Z_batch, b_real, z_scale, dtype, device):
     return z_scales, targets
 
 
-def _fit_map(frequencies, Z_batch, b_real, basis_freq, epsilon, nonneg,
-             sigma_min, z_scale, dtype, device, random_seed, init_from_ridge,
-             ridge_kw, n_restarts, max_iter, polish, mark, phases):
+def _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dtype, device,
+             random_seed, init_from_ridge, ridge_kw, n_restarts, max_iter,
+             polish, mark, phases):
     """fit_spectra_batch(mode='optimize') on the padded, descending batch:
     L-BFGS from Stan-random restarts or the ridge seed, the Newton polish,
     and the result at the real rows."""
     b = Z_batch.shape[0]
-    frequencies, tau, eps, cfg, data = _build_shared(
-        frequencies, mode="optimize", basis_freq=basis_freq, epsilon=epsilon,
-        nonneg=nonneg, dtype=dtype, sigma_min=sigma_min, device=device)
+    frequencies, tau, eps, cfg, data, dists_norm = _build_shared(
+        frequencies, mode="optimize", dtype=dtype, device=device,
+        **setup_kw)
     z_scales, targets = _scaled_targets(Z_batch, b_real, z_scale, dtype,
-                                        device)
+                                        device, dists_norm)
     gen = torch.Generator(device=device).manual_seed(int(random_seed))
     obj = MapObjective(cfg, data, targets)
     mark("setup")
     if init_from_ridge:
-        iv_x, iv_rinf, iv_induc = _ridge_init_values(
-            frequencies, Z_batch, b_real, z_scales, obj.spec.K, ridge_kw,
-            dtype, device, basis_freq=basis_freq, epsilon=epsilon)
+        iv = _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data,
+                         targets, ridge_kw, dtype, device,
+                         setup_kw["basis_freq"], setup_kw["epsilon"],
+                         cfg.outliers)
         mark("ridge")
-        q0 = ravel(cfg, init_unconstrained(
-            cfg, data, gen, batch_shape=(b,),
-            init_values={"x_0": iv_x, "Rinf_raw": iv_rinf,
-                         "induc_raw": iv_induc}))
+        q0 = ravel(cfg, init_unconstrained(cfg, data, gen, batch_shape=(b,),
+                                           init_values=iv))
         res = run_lbfgs(obj.value_and_grad, q0, max_iter=max_iter)
     else:
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
@@ -626,15 +825,18 @@ def _fit_map(frequencies, Z_batch, b_real, basis_freq, epsilon, nonneg,
     def host(t):
         return t[:b_real].cpu().numpy()
 
-    diagnostics = {"value": host(res.value),
-                   "n_iter": host(res.n_iter).astype(np.float32),
-                   "grad_norm": host(res.grad_norm),
-                   "converged": host(res.converged)}
+    out = {"value": host(res.value),
+           "n_iter": host(res.n_iter).astype(np.float32),
+           "grad_norm": host(res.grad_norm),
+           "converged": host(res.converged)}
+    for i in range(1, len(cfg.dists)):
+        out[f"coef_{i}"] = c[f"x_{i}"].cpu().numpy()
+    diagnostics = _rescaled_diagnostics(cfg, out, z_scales, dists_norm)
     if phases is not None:
         diagnostics["phase_s"] = phases
         diagnostics["n_iter_lbfgs"] = host(n_lbfgs).astype(np.float32)
     return BatchFitResult(
-        coef=c["x_0"].cpu().numpy() * z_scales[:, None],
+        coef=c["x_0"].cpu().numpy() * _coef_scale(cfg, 0, z_scales),
         r_inf=c["Rinf"].cpu().numpy() * z_scales,
         inductance=c["induc"].cpu().numpy() * z_scales, gamma_lo=None,
         gamma_hi=None, z_scales=z_scales, tau=tau, epsilon=eps,
@@ -974,12 +1176,15 @@ def evaluate_gamma(result: BatchFitResult, eval_tau, which: str = "coef"):
 
 def predict_Z_batch(result: BatchFitResult, frequencies, device=None):
     """Predicted impedance of every spectrum of a batch fit at
-    ``frequencies``: Z = R_inf + j w L + coef @ A(f)^T at the MAP point or
-    posterior-mean coefficients, A built by ``construct_A`` in float64
-    (the quadrature kernel on a CUDA device). At exactly the training grid
-    of a sample-mode fit it returns the draws' mean prediction
+    ``frequencies``: Z = R_inf + j w L + sum(series A @ x) + sum(parallel
+    1 / (A @ x)) at the MAP point or posterior-mean coefficients, each A
+    rebuilt from ``diagnostics['dist_geometry']`` (a single series DRT on
+    the result's grid when absent) by ``construct_A`` in float64 (the
+    quadrature kernel for a DRT on a CUDA device). At exactly the training
+    grid of a sample-mode fit it returns the draws' mean prediction
     (``diagnostics['z_hat_mean']``), the reference's generated-quantities
-    semantics. Returns a complex (B, N) array."""
+    semantics, which differs from Z at the mean coefficients for parallel
+    distributions. Returns a complex (B, N) array."""
     frequencies = np.asarray(frequencies, float)
     f_train = result.diagnostics.get("f_train")
     if f_train is not None and len(f_train) == len(frequencies):
@@ -991,11 +1196,22 @@ def predict_Z_batch(result: BatchFitResult, frequencies, device=None):
             n = len(f_train)
             return (zm[:, :n] + 1j * zm[:, n:])[:, idx]
     dev = resolve_device(device)
-    kw = dict(tau=result.tau, epsilon=result.epsilon, basis=result.basis,
-              dtype=torch.float64, device=dev)
-    A = (construct_A(frequencies, "real", **kw).cpu().numpy()
-         + 1j * construct_A(frequencies, "imag", **kw).cpu().numpy())
+    geometry = result.diagnostics.get("dist_geometry") or (
+        {"kernel": "DRT", "dist_type": "series", "symmetry": "planar",
+         "bc": "transmissive", "ct": False, "k_ct": None,
+         "basis": result.basis, "tau": result.tau,
+         "epsilon": result.epsilon},)
     z = (np.asarray(result.r_inf, float)[:, None]
          + 1j * 2 * np.pi * frequencies[None, :]
          * np.asarray(result.inductance, float)[:, None])
-    return z + np.asarray(result.coef) @ A.T
+    for i, g in enumerate(geometry):
+        kw = dict(tau=g["tau"], epsilon=g["epsilon"], basis=g["basis"],
+                  kernel=g["kernel"], dist_type=g["dist_type"],
+                  symmetry=g["symmetry"], bc=g["bc"], ct=g["ct"],
+                  k_ct=g["k_ct"], dtype=torch.float64, device=dev)
+        A = (construct_A(frequencies, "real", **kw).cpu().numpy()
+             + 1j * construct_A(frequencies, "imag", **kw).cpu().numpy())
+        coef = result.coef if i == 0 else result.diagnostics[f"coef_{i}"]
+        t = np.asarray(coef) @ A.T
+        z = z + (1.0 / t if g["dist_type"] == "parallel" else t)
+    return z

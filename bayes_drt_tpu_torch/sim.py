@@ -1,11 +1,15 @@
-"""Synthetic EIS data in numpy: analytic DRTs, the reference simulation
-circuits and the seeded uniform noise model of the benchmark batches
-(copy of the numpy parts of bayes_drt_tpu/sim.py, which this package may
-not import)."""
+"""Synthetic EIS data: analytic DRTs, the reference simulation circuits,
+the impedance of a parallel DDT with a Cole-Cole distribution of diffusion
+times, and the seeded uniform noise model of the benchmark batches (copy of
+bayes_drt_tpu/sim.py, which this package may not import; the DDT's
+diffusion impedance comes from ops/kernels.py on the CPU)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .ops.kernels import get_zd_func
 
 
 def zarc_drt(tau, t0, phi):
@@ -40,6 +44,29 @@ def z_gerischer(freq, R, t0):
     """Gerischer: R / sqrt(1 + j w t0)."""
     omega = 2 * np.pi * np.asarray(freq, float)
     return R / np.sqrt(1 + 1j * omega * t0)
+
+
+def cole_cole_rbf(y, epsilon):
+    """Cole-Cole basis in numpy: sin(u) / (2 pi (cosh(eps y) - cos(u))),
+    u = (1 - eps) pi."""
+    u = (1.0 - epsilon) * np.pi
+    return ((1.0 / (2.0 * np.pi)) * np.sin(u)
+            / (np.cosh(epsilon * np.asarray(y, float)) - np.cos(u)))
+
+
+def z_ddt_cole_cole(freq, t0, phi, bc="transmissive", symmetry="planar",
+                    n_quad=2000, y_max=20.0):
+    """Impedance of a parallel DDT with a Cole-Cole distribution of
+    diffusion times centered at t0 (the reference's TP/BP-DDT simulations):
+    Y(w) = int phi_cc(y) / Z_D(y, w, t0) dy, Z = 1/Y."""
+    freq = np.asarray(freq, float)
+    omega = 2 * np.pi * freq
+    y = np.linspace(-y_max, y_max, n_quad)
+    phi_y = cole_cole_rbf(y, phi)
+    x = np.sqrt(1j * omega[:, None] * t0 * np.exp(y)[None, :])
+    zd = get_zd_func(bc, symmetry)(torch.as_tensor(x)).numpy()
+    Y = np.trapezoid(phi_y[None, :] / zd, y, axis=1)
+    return 1.0 / Y
 
 
 def add_simple_noise(Z, seed, scale, kind="uniform"):
@@ -87,6 +114,16 @@ def reference_circuit(name, freq):
     raise ValueError(f"Unknown reference circuit {name!r}")
 
 
+def series_parallel_circuit(freq):
+    """The Series-Parallel check spectrum: 1 + ZARC(1, 1e-3, 0.8) in series
+    with a transmissive planar DDT whose diffusion times are Cole-Cole
+    distributed at t0 = 0.1 with phi = 0.8. Its truths: the DRT part is
+    zarc_drt(tau, 1e-3, 0.8), the DDT part cole_cole_rbf(ln(tau/0.1), 0.8)."""
+    freq = np.asarray(freq, float)
+    return (1 + z_zarc(freq, 1, 1e-3, 0.8)
+            + z_ddt_cole_cole(freq, 0.1, 0.8, bc="transmissive"))
+
+
 def reference_gamma(name, tau):
     """Analytic DRT of the named reference circuit (None for pure-RC
     delta-function circuits)."""
@@ -105,13 +142,10 @@ def reference_gamma(name, tau):
     return None
 
 
-def make_benchmark_batch(n_spectra, freq=None, circuit="ZARC",
-                         noise_level=0.0025, seed=0):
-    """A batch of noisy replicas of a reference circuit. Returns
-    (freq, Z_batch (B, N))."""
-    if freq is None:
-        freq = np.logspace(6, -2, 81)
-    Z = reference_circuit(circuit, freq)
+def noisy_replicas(Z, n_spectra, noise_level=0.0025, seed=0):
+    """(n_spectra, N) noisy replicas of the spectrum ``Z``: uniform noise
+    at ``noise_level`` of its real range, one RandomState seed a replica
+    drawn from ``seed``."""
     z_range = np.max(Z.real) - np.min(Z.real)
     rng = np.random.RandomState(seed)
     out = []
@@ -119,4 +153,14 @@ def make_benchmark_batch(n_spectra, freq=None, circuit="ZARC",
         Zn, _, _ = add_simple_noise(Z, rng.randint(1 << 31),
                                     noise_level * z_range, "uniform")
         out.append(Zn)
-    return freq, np.stack(out)
+    return np.stack(out)
+
+
+def make_benchmark_batch(n_spectra, freq=None, circuit="ZARC",
+                         noise_level=0.0025, seed=0):
+    """A batch of noisy replicas of a reference circuit. Returns
+    (freq, Z_batch (B, N))."""
+    if freq is None:
+        freq = np.logspace(6, -2, 81)
+    Z = reference_circuit(circuit, freq)
+    return freq, noisy_replicas(Z, n_spectra, noise_level, seed)

@@ -48,9 +48,21 @@ line is printed):
      predict_Z_batch at the training grid and a 2x denser one; then
      float64 card-vs-CPU parity of run_lbfgs and newton_polish on 8
      spectra from the same numpy-made starts.
-  11. one JSON line listing both kernels with their launches (phases 4,
-     6, 7 and 10) and times; K2's bound counts the function's least fp64
-     work a node, and the count its compiled loop issues (cuobjdump
+  11. the Series-Parallel configuration of the extended sweep (DRT +
+     TP-DDT, x_scale 0.8, basis logspace(6, -2, 81) each, N=81, D=336,
+     nonneg): MAP on 1024 spectra in the default form and NUTS md8
+     (tree_scan, ncp) on 256 of them at 4 x (100 + 100), both through the
+     autograd value and gradient replayed as CUDA graphs, gated on finite
+     coefficients, the median impedance residual against the noiseless
+     spectrum (<= 0.02), the median divergence rate (< 0.05) and the DRT
+     part's RMSE (<= 1.5x the JAX package's MAP figure); two B=64 MAP fits
+     (a single parallel blocking DDT; a ridge-seeded series DRT with
+     outliers on spectra with three corrupted frequencies); the polish's
+     Hessian and solve at D=336; float64 card-vs-CPU parity of the DDT A
+     matrices, the autograd value and gradient and one NUTS transition.
+  12. one JSON line listing both kernels with their launches (phases 4,
+     6, 7, 10 and 11) and times; K2's bound counts the function's least
+     fp64 work a node, and the count its compiled loop issues (cuobjdump
      -sass) is printed beside it.
 The last line of stdout is {"ok": true, "device": {...}}.
 
@@ -101,6 +113,29 @@ MAP_GATE_P90 = 0.08
 MAP_PARITY_B = 8
 MAP_PARITY_ITER = 200
 MAP_PARITY_SHORT = 25
+
+# the Series-Parallel phase: DRT + TP-DDT (x_scale 0.8) of the extended
+# sweep (benchmarks/paper_batch_ext.py:84-90), both on the basis
+# logspace(6, -2, 81), nonneg, sigma_min 0.002; MAP at B=1024 in the
+# default form, NUTS at B=256 with the sweep's settings (md8, tree_scan,
+# ncp, no escalation) at a budget cut from 4 x (500 + 500); the two small
+# B=64 MAP fits with their L-BFGS cap cut from 2000 (restarts) and 1500
+# (ridge seed)
+SP_SEED = 11
+SP_B_MAP = 1024
+SP_B_SAMPLE = 256
+SP_WARMUP = 100
+SP_SAMPLES = 100
+SP_DEPTH = 8
+SP_B_SMALL = 64
+SP_SMALL_ITER = 1000
+SP_GATE_Z = 0.02          # median |Z_hat - Z_true| / |Z_true|
+SP_GATE_DIV = 0.05        # median divergence rate
+# the JAX package's own MAP recovery of the DRT part on the first 8 of
+# these spectra (mean per-spectrum RMSE, Rp = 1; float64 on the CPU, by
+# scripts/jax_series_parallel_reference.py), and the bar, 1.5x of it
+SP_JAX_DRT_RMSE = 0.022847870434669106
+SP_GATE_DRT_RMSE = 1.5 * SP_JAX_DRT_RMSE
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -299,7 +334,7 @@ def traj_inputs(dtype, state=None, R=B * CHAINS, n_leap=N_STEPS, seed=0,
                                                       ravel)
     from bayes_drt_tpu_torch.parallel.batch import _build_shared
     freq, Zb = sim.make_benchmark_batch(R // CHAINS, freq=freq, seed=0)
-    _, _, _, cfg, data = _build_shared(freq, ncp=True, dtype=dtype,
+    _, _, _, cfg, data, _ = _build_shared(freq, ncp=True, dtype=dtype,
                                        device="cuda")
     spec = flat_spec_for(cfg, data)
     sh = flat_shared_for(cfg, data, dtype)
@@ -816,6 +851,81 @@ def phase_nuts_timing(card, state):
           f"[{card}]")
 
 
+def nuts_transition_parity(card, label, R, depth, seed, rows):
+    """One float64 NUTS transition (max_depth ``depth``, noise from numpy
+    ``seed``) of the rows ``rows(device)`` gives ((value_and_grad, q, logp,
+    grad, eps, m_inv) on that device): on the card replayed as CUDA graphs
+    (GraphedTree, the static tree), which must equal the eager early-stop
+    form there bit for bit, against eager on the CPU. A row agrees when its
+    tree (n_leapfrog, depth, divergence) is the same, its q is within 1e-9
+    of the row's largest entry, and its logp and grad are within 1e-9 of
+    the CPU's evaluation at the card's own selected point (after up to 255
+    leapfrogs the two summation orders leave ~1e-12 relative differences
+    in q, which a stiff posterior turns into ~1e-7 in grad; printed).
+    Prints every differing row and returns their count."""
+    import torch
+    from bayes_drt_tpu_torch.infer.nuts import (GraphedTree,
+                                                nuts_transition_flat)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        vg, q, lp, g, eps, m_inv = rows(dev)
+        noise = nuts_noise_np(R, q.shape[1], depth, seed, torch.float64, dev)
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            tree = GraphedTree(vg, q, lp, g, noise, eps, m_inv, depth, 1000.0)
+            o = tree(q, lp, g, noise, eps, m_inv)
+            eager = nuts_transition_flat(vg, q, lp, g, noise, eps, m_inv,
+                                         max_depth=depth)
+            torch.cuda.synchronize()
+            del tree
+            flat_o = o[:3] + tuple(o[3])
+            flat_e = eager[:3] + tuple(eager[3])
+            graph_eager = max(float((a.double() - b.double()).abs().max())
+                              for a, b in zip(flat_o, flat_e))
+            print(f"{label}: float64 graph replay vs eager on the card, "
+                  f"largest difference {graph_eager:.3e}")
+            if not all(torch.equal(a, b) for a, b in zip(flat_o, flat_e)):
+                raise AssertionError(f"{label}: float64 graph replay "
+                                     "differs from eager on the card")
+        else:
+            o = nuts_transition_flat(vg, q, lp, g, noise, eps, m_inv,
+                                     max_depth=depth)
+            vg_cpu = vg
+        outs[dev] = [t.cpu() for t in o[:3]] + [t.cpu() for t in o[3]]
+        print(f"{label}: {dev} transition {time.perf_counter() - t0:.2f} s"
+              + (" (capture, replay and eager)" if dev == "cuda" else ""))
+    c, h = outs["cuda"], outs["cpu"]
+    same = (c[4] == h[4]) & (c[5] == h[5]) & (c[7] == h[7])
+
+    def rel_rows(a, b):
+        a, b = a.reshape(R, -1), b.reshape(R, -1)
+        scale = torch.clamp(b.abs().max(dim=1).values, min=1.0)
+        return (a - b).abs().max(dim=1).values / scale
+
+    direct = [rel_rows(a, b) for a, b in zip(c[:3], h[:3])]
+    lp_at, g_at = vg_cpu(c[0])
+    rel = {"q": direct[0], "logp": rel_rows(c[1], lp_at),
+           "grad": rel_rows(c[2], g_at)}
+    for v in rel.values():
+        same &= v <= 1e-9
+    print(f"{label}: largest relative difference of the two selected "
+          "points' q, logp, grad: "
+          + ", ".join(f"{float(v.max()):.2e}" for v in direct))
+    bad = torch.nonzero(~same).flatten().tolist()
+    for r in bad:
+        print(f"{label}: row {r} differs: n_leapfrog {int(c[5][r])}/"
+              f"{int(h[5][r])}, depth {int(c[7][r])}/{int(h[7][r])}, "
+              f"diverging {bool(c[4][r])}/{bool(h[4][r])}, relative error "
+              + ", ".join(f"{k} {float(v[r]):.1e}" for k, v in rel.items()))
+    print(f"{label}: largest relative error over rows (q; logp, grad at the "
+          "card's point): "
+          + ", ".join(f"{float(v.max()):.2e}" for v in rel.values()))
+    print(f"{label}: {R - len(bad)}/{R} rows identical in tree and within "
+          f"1e-9 (float64, md{depth}; mean n_leapfrog "
+          f"{float(h[5].float().mean()):.1f}) [{card}]")
+    return len(bad)
+
+
 def phase_parity(card, state):
     """float64 on the card against the port on the CPU: the batched ridge
     on 8 spectra (coefficients within rtol 1e-8 of each spectrum's
@@ -828,8 +938,6 @@ def phase_parity(card, state):
     99.9% of rows; every differing row is printed."""
     import torch
     from bayes_drt_tpu_torch import sim
-    from bayes_drt_tpu_torch.infer.nuts import (GraphedTree,
-                                                nuts_transition_flat)
     from bayes_drt_tpu_torch.parallel import ridge_fit_spectra_batch
     torch.set_num_threads(8)
     freq, Zb = sim.make_benchmark_batch(8, circuit="ZARC",
@@ -853,78 +961,11 @@ def phase_parity(card, state):
         raise AssertionError("parity ridge: card and CPU differ")
 
     R = B * CHAINS
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        vg, q, lp, g, eps, m_inv = nuts_rows(torch.float64, state, R, dev)
-        noise = nuts_noise_np(R, q.shape[1], NUTS_DEPTH, 6, torch.float64,
-                              dev)
-        t0 = time.perf_counter()
-        if dev == "cuda":
-            # the card's side runs as sample_nuts runs the refit there: the
-            # static tree replayed as CUDA graphs, which must equal the
-            # eager early-stop form on the card bit for bit
-            tree = GraphedTree(vg, q, lp, g, noise, eps, m_inv, NUTS_DEPTH,
-                               1000.0)
-            o = tree(q, lp, g, noise, eps, m_inv)
-            eager = nuts_transition_flat(vg, q, lp, g, noise, eps, m_inv,
-                                         max_depth=NUTS_DEPTH)
-            torch.cuda.synchronize()
-            del tree
-            flat_o = o[:3] + tuple(o[3])
-            flat_e = eager[:3] + tuple(eager[3])
-            graph_eager = max(float((a.double() - b.double()).abs().max())
-                              for a, b in zip(flat_o, flat_e))
-            print(f"parity nuts: float64 graph replay vs eager on the card, "
-                  f"largest difference {graph_eager:.3e}")
-            if not all(torch.equal(a, b) for a, b in zip(flat_o, flat_e)):
-                raise AssertionError("parity nuts: float64 graph replay "
-                                     "differs from eager on the card")
-        else:
-            o = nuts_transition_flat(vg, q, lp, g, noise, eps, m_inv,
-                                     max_depth=NUTS_DEPTH)
-        outs[dev] = [t.cpu() for t in o[:3]] + [t.cpu() for t in o[3]]
-        if dev == "cpu":
-            vg_cpu = vg
-        print(f"parity nuts: {dev} transition {time.perf_counter() - t0:.2f}"
-              " s" + (" (capture, replay and eager)" if dev == "cuda"
-                      else ""))
-    c, h = outs["cuda"], outs["cpu"]
-    same = (c[4] == h[4]) & (c[5] == h[5]) & (c[7] == h[7])
-    # each row's q within 1e-9 of the row's largest entry: after up to 255
-    # leapfrogs the two summation orders leave ~1e-12 relative
-    # differences. The stiff posterior turns those into ~1e-7 relative
-    # gradient differences (printed), so the card's logp and grad are held
-    # to the CPU's evaluation at the card's own selected point.
-    direct = {}
-    for name, a, b in zip(("q", "logp", "grad"), c[:3], h[:3]):
-        a, b = a.reshape(R, -1), b.reshape(R, -1)
-        scale = torch.clamp(b.abs().max(dim=1).values, min=1.0)
-        direct[name] = (a - b).abs().max(dim=1).values / scale
-    lp_at, g_at = vg_cpu(c[0])
-    rel = {"q": direct["q"]}
-    for name, a, b in (("logp", c[1], lp_at), ("grad", c[2], g_at)):
-        a, b = a.reshape(R, -1), b.reshape(R, -1)
-        scale = torch.clamp(b.abs().max(dim=1).values, min=1.0)
-        rel[name] = (a - b).abs().max(dim=1).values / scale
-    for v in rel.values():
-        same &= v <= 1e-9
-    print("parity nuts: largest relative difference of the two selected "
-          "points' q, logp, grad: "
-          + ", ".join(f"{float(v.max()):.2e}" for v in direct.values()))
-    bad = torch.nonzero(~same).flatten().tolist()
-    for r in bad:
-        print(f"parity nuts: row {r} differs: n_leapfrog {int(c[5][r])}/"
-              f"{int(h[5][r])}, depth {int(c[7][r])}/{int(h[7][r])}, "
-              f"diverging {bool(c[4][r])}/{bool(h[4][r])}, relative error "
-              + ", ".join(f"{k} {float(v[r]):.1e}" for k, v in rel.items()))
-    print("parity nuts: largest relative error over rows (q; logp, grad "
-          "at the card's point): "
-          + ", ".join(f"{float(v.max()):.2e}" for v in rel.values()))
-    print(f"parity nuts: {R - len(bad)}/{R} rows identical in tree and "
-          f"within 1e-9 (float64, md{NUTS_DEPTH}; mean n_leapfrog "
-          f"{float(h[5].float().mean()):.1f}) [{card}]")
-    if len(bad) > 0.001 * R:
-        raise AssertionError(f"parity nuts: {len(bad)} of {R} rows differ")
+    bad = nuts_transition_parity(
+        card, "parity nuts", R, NUTS_DEPTH, 6,
+        lambda dev: nuts_rows(torch.float64, state, R, dev))
+    if bad > 0.001 * R:
+        raise AssertionError(f"parity nuts: {bad} of {R} rows differ")
 
 
 def map_figures(res, tau, gt, rp):
@@ -1024,7 +1065,7 @@ def polish_pieces(card, freq, Zb):
                                                       ravel)
     from bayes_drt_tpu_torch.parallel import batch
     f_desc = np.sort(freq)[::-1]
-    _, _, _, cfg, data = batch._build_shared(f_desc, mode="optimize",
+    _, _, _, cfg, data, _ = batch._build_shared(f_desc, mode="optimize",
                                              device="cuda")
     _, tgt = batch._scaled_targets(
         np.ascontiguousarray(Zb[:, np.argsort(freq)[::-1]]), B, None,
@@ -1074,7 +1115,7 @@ def phase_map_parity(card):
         f_desc = np.sort(freq)[::-1]
         objs = {}
         for dev in ("cpu", "cuda"):
-            _, _, _, cfg, data = batch._build_shared(
+            _, _, _, cfg, data, _ = batch._build_shared(
                 f_desc, mode="optimize", dtype=torch.float64, device=dev)
             z_scales, tgt = batch._scaled_targets(Zd, MAP_PARITY_B, None,
                                                   torch.float64, dev)
@@ -1175,6 +1216,305 @@ def phase_map_parity(card):
         raise AssertionError(f"parity map: card and CPU differ in {failed}")
 
 
+def sp_setup():
+    """The Series-Parallel check batch (numpy, seed SP_SEED), its
+    distributions and truths."""
+    from bayes_drt_tpu_torch import sim
+    freq = np.logspace(6, -2, 81)
+    basis = np.logspace(6, -2, 81)
+    dists = {"DRT": {"kernel": "DRT", "basis_freq": basis},
+             "TP-DDT": {"kernel": "DDT", "symmetry": "planar",
+                        "bc": "transmissive", "dist_type": "parallel",
+                        "basis_freq": basis, "x_scale": 0.8}}
+    z_true = sim.series_parallel_circuit(freq)
+    zb = sim.noisy_replicas(z_true, SP_B_MAP, 0.0025, SP_SEED)
+    tau = 1.0 / (2 * np.pi * basis)
+    truth = {"drt": sim.zarc_drt(tau, 1e-3, 0.8),
+             "ddt": sim.cole_cole_rbf(np.log(tau / 0.1), 0.8)}
+    return freq, dists, z_true, zb, tau, truth
+
+
+def sp_figures(res, freq, z_true, tau, truth):
+    """Mean per-spectrum RMSE of the DRT and TP-DDT parts against their
+    truths, the median relative impedance residual at the training grid
+    (predict_Z_batch: for a sampled fit the draws' mean prediction) and
+    whether every coefficient is finite."""
+    from bayes_drt_tpu_torch.parallel import evaluate_gamma, predict_Z_batch
+    g = evaluate_gamma(res, tau)
+    g1 = evaluate_gamma(res, tau, "coef_1")
+    zhat = predict_Z_batch(res, freq)
+    return {
+        "drt_rmse": float(np.mean(np.sqrt(np.mean(
+            (g - truth["drt"]) ** 2, axis=1)))),
+        "ddt_rmse": float(np.mean(np.sqrt(np.mean(
+            (g1 - truth["ddt"]) ** 2, axis=1)))),
+        "z_resid_median": float(np.median(np.abs(zhat - z_true[None, :])
+                                          / np.abs(z_true)[None, :])),
+        "finite": bool(np.isfinite(res.coef).all()
+                       and np.isfinite(res.diagnostics["coef_1"]).all()
+                       and np.isfinite(zhat).all())}
+
+
+def phase_multidist(card):
+    """The Series-Parallel configuration of the extended sweep (DRT +
+    TP-DDT, N=81, K=81 each, D=336, nonneg): (a) MAP on 1024 spectra in the
+    default form (2 restarts, cap 2000, polish; the autograd value and
+    gradient replayed as CUDA graphs), (b) NUTS md8 tree_scan ncp on 256
+    of them at 4 x (SP_WARMUP + SP_SAMPLES), gated on finite coefficients,
+    the median impedance residual against the noiseless spectrum, the
+    median divergence rate (sampling) and the DRT part's RMSE against the
+    bar from the JAX package's MAP; (c) two B=64 MAP fits: a single
+    parallel blocking DDT (the Y* z-scale) and a ridge-seeded series DRT
+    with outliers on ZARC spectra with three corrupted frequencies; (d)
+    the polish's Hessian and solve at D=336; (e) float64 card-vs-CPU
+    parity of the DDT A matrices, the autograd value and gradient at
+    R=1024 and one NUTS transition at R=1024 (on the card as CUDA graphs,
+    bit for bit equal to eager there). Returns the K2 launches of (a) to
+    (c)."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    from bayes_drt_tpu_torch.parallel import batch, predict_Z_batch
+    freq, dists, z_true, zb, tau, truth = sp_setup()
+    kw = dict(distributions=dists, nonneg=True, sigma_min=0.002,
+              timing=True)
+    print(f"series-parallel: budget cut from 4 x (500 + 500) to 4 x "
+          f"({SP_WARMUP} + {SP_SAMPLES}) for sampling at B={SP_B_SAMPLE}; "
+          f"the B={SP_B_SMALL} fits' L-BFGS cap cut to {SP_SMALL_ITER} "
+          f"(from 2000 and 1500) [{card}]")
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    out, failed = {}, []
+    fits = {}
+    for name, call in (
+            ("map", dict(mode="optimize")),
+            ("sample", dict(mode="sample", chains=CHAINS, warmup=SP_WARMUP,
+                            samples=SP_SAMPLES, max_tree_depth=SP_DEPTH,
+                            tree_scan=True, ncp=True, escalate=False,
+                            gamma_eval_tau=tau))):
+        z_in = zb if name == "map" else zb[:SP_B_SAMPLE]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batch.fit_spectra_batch(freq, z_in, random_seed=3, **kw,
+                                      **call)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fits[name] = res
+        d = res.diagnostics
+        fig = sp_figures(res, freq, z_true, tau, truth)
+        gates = {"finite": fig["finite"],
+                 "z_resid": fig["z_resid_median"] <= SP_GATE_Z,
+                 "drt_rmse": fig["drt_rmse"] <= SP_GATE_DRT_RMSE}
+        rec = dict(B=len(z_in), wall_s=wall, phase_s=d["phase_s"], **fig)
+        if name == "map":
+            n_l = d["n_iter_lbfgs"]
+            rec.update(lbfgs_iters=int(n_l.max()),
+                       s_per_lbfgs_iter=d["phase_s"]["lbfgs"]
+                       / float(n_l.max()),
+                       polish_iters_max=int((d["n_iter"] - n_l).max()),
+                       converged_share=float(np.mean(d["converged"])))
+        else:
+            draw_s = np.asarray(d["draw_s"])
+            div = float(np.median(d["divergence_rate"]))
+            gates["divergence"] = div < SP_GATE_DIV
+            cov = float(np.mean((truth["drt"][None, :]
+                                 >= d["gamma_eval_lo"])
+                                & (truth["drt"][None, :]
+                                   <= d["gamma_eval_hi"])))
+            rec.update(divergence_rate_median=div, drt_band_coverage=cov,
+                       n_leapfrog_mean=float(np.mean(d["n_leapfrog"])),
+                       first_draw_s=float(draw_s[0]),
+                       draw_s_median=float(np.median(draw_s[1:])))
+        rec.update(gates={k: bool(v) for k, v in gates.items()},
+                   drt_rmse_bar=SP_GATE_DRT_RMSE)
+        out[name] = rec
+        print(f"series-parallel {name}: " + json.dumps(rec) + f" [{card}]")
+        failed += [f"{name}.{k}" for k, v in gates.items() if not v]
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+
+    # (c) the two small fits
+    small = {}
+    bp = {"DDT": {"kernel": "DDT", "symmetry": "planar", "bc": "blocking",
+                  "dist_type": "parallel",
+                  "basis_freq": np.logspace(6, -3, 91)}}
+    z_bp = 1 + sim.z_ddt_cole_cole(freq, 0.1, 0.8, bc="blocking")
+    zb_bp = sim.noisy_replicas(z_bp, SP_B_SMALL, 0.0025, SP_SEED + 1)
+    _, zb_out = sim.make_benchmark_batch(SP_B_SMALL, circuit="ZARC",
+                                         seed=SP_SEED + 2)
+    z_zarc = sim.reference_circuit("ZARC", freq)
+    bad = [12, 40, 66]
+    zb_out[:, bad] += 0.25 * (1 + 1j)
+    for name, z_in, z_ref, call in (
+            ("parallel_bp_ddt", zb_bp, z_bp, dict(distributions=bp)),
+            ("series_outliers_ridge", zb_out, z_zarc,
+             dict(outliers=True, init_from_ridge=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batch.fit_spectra_batch(freq, z_in, mode="optimize",
+                                      max_iter=SP_SMALL_ITER, timing=True,
+                                      **call)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        zhat = predict_Z_batch(res, freq)
+        keep = np.setdiff1d(np.arange(len(freq)), bad)
+        resid = np.abs(zhat - z_ref[None, :]) / np.abs(z_ref)[None, :]
+        finite = bool(np.isfinite(res.coef).all() and np.isfinite(zhat).all())
+        rec = {"B": SP_B_SMALL, "wall_s": wall,
+               "phase_s": res.diagnostics["phase_s"],
+               "z_scale_median": float(np.median(res.z_scales)),
+               "z_resid_median": float(np.median(resid[:, keep])),
+               "converged_share": float(np.mean(
+                   res.diagnostics["converged"])), "finite": finite}
+        if name == "series_outliers_ridge":
+            g = batch.evaluate_gamma(res, res.tau)
+            rec["drt_rmse"] = float(np.mean(np.sqrt(np.mean(
+                (g - sim.zarc_drt(res.tau, 1e-3, 0.8)) ** 2, axis=1))))
+        small[name] = rec
+        print(f"series-parallel small fit {name}: " + json.dumps(rec)
+              + f" [{card}]")
+        if not finite:
+            failed.append(f"{name}.finite")
+    launches["quad"] = drt_quad.launches
+    launches["traj"] = traj_fused.launches
+    # K2: SP setup twice (the DRT's A, re and im) and the MAP fit's
+    # prediction at the training grid (the sampled fit serves its draws'
+    # mean); the outlier fit's setup, ridge and prediction
+    want = {"quad": 2 + 2 + 2 + 2 + 2 + 2, "traj": 0}
+    print(f"series-parallel launches {launches} (expected {want}) [{card}]")
+    if launches != want:
+        failed.append("launches")
+    sp_polish_pieces(card, freq, dists, zb)
+    sp_parity(card, freq, dists, zb, fits["sample"])
+    if failed:
+        raise AssertionError(f"series-parallel gates failed: {failed}")
+    return launches
+
+
+def sp_polish_pieces(card, freq, dists, zb):
+    """Device time of one polish iteration's pieces on the Series-Parallel
+    posterior at B=1024, D=336, float32 (CUDA events): the Hessian
+    (autograd, reverse over reverse), the batched solve and one value and
+    gradient (autograd)."""
+    import torch
+    from bayes_drt_tpu_torch.models.posterior import (init_unconstrained,
+                                                      ravel)
+    from bayes_drt_tpu_torch.parallel import batch
+    f_desc = np.sort(freq)[::-1]
+    _, _, _, cfg, data, _ = batch._build_shared(
+        f_desc, mode="optimize", distributions=dists, nonneg=True,
+        device="cuda")
+    _, tgt = batch._scaled_targets(
+        np.ascontiguousarray(zb[:, np.argsort(freq)[::-1]]), len(zb), None,
+        torch.float32, "cuda", dists)
+    obj = batch.MapObjective(cfg, data, tgt)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = ravel(cfg, init_unconstrained(cfg, data, gen, batch_shape=(len(zb),)))
+    torch.cuda.reset_peak_memory_stats()
+    h = obj.hessian(q)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    h.diagonal(dim1=1, dim2=2).add_(1.0)
+    g = obj.value_and_grad(q)[1]
+    ms = {"hessian": cuda_ms(lambda: obj.hessian(q), 3),
+          "solve": cuda_ms(lambda: torch.linalg.solve(h, g), 3),
+          "value_and_grad": cuda_ms(lambda: obj.value_and_grad(q), 10),
+          "hessian_peak_gib": peak}
+    print(f"series-parallel polish pieces (B={len(zb)}, D={q.shape[1]}, "
+          f"float32, ms a call): {json.dumps(ms)} [{card}]")
+    del h, obj
+    torch.cuda.empty_cache()
+
+
+def sp_parity(card, freq, dists, zb, sampled):
+    """float64 on the card against the port on the CPU: (a) the DDT A
+    matrices of all three bc/symmetry pairs, series and parallel, ct off
+    and on (k_ct 2.5), both parts, within 1e-12 of the largest entry of
+    the complex A' + j A''; (b)
+    the Series-Parallel autograd value and gradient of R=1024 numpy-made
+    rows (logp within 1e-10 relative, gradient normwise within 1e-9 a
+    row); (c) one NUTS transition (md8) at R=1024 from the sampled fit's
+    final states, by nuts_transition_parity (phase 9's criterion), on at
+    least 99.9% of rows."""
+    import torch
+    from bayes_drt_tpu_torch.models.posterior import posterior_value_and_grad
+    from bayes_drt_tpu_torch.ops.matrices import construct_A
+    from bayes_drt_tpu_torch.parallel import batch
+    torch.set_num_threads(8)
+    failed = []
+    basis = np.logspace(6, -2, 81)
+    tau = 1.0 / (2 * np.pi * basis)
+    worst, worst_part = 0.0, 0.0
+    t0 = time.perf_counter()
+    eps = 1.0 / np.mean(np.diff(np.log(tau)))
+    for bc, sym in (("transmissive", "planar"), ("blocking", "planar"),
+                    ("blocking", "spherical")):
+        for dist_type in ("series", "parallel"):
+            for ct in (False, True):
+                a = {dev: [construct_A(
+                    freq, part, tau=tau, epsilon=eps, kernel="DDT",
+                    dist_type=dist_type, symmetry=sym, bc=bc, ct=ct,
+                    k_ct=2.5 if ct else None, dtype=torch.float64,
+                    device=dev).cpu() for part in ("real", "imag")]
+                    for dev in ("cuda", "cpu")}
+                # held to the largest |A' + j A''|: a series blocking DDT's
+                # A' is the O(1) real part of an integrand whose imaginary
+                # part reaches ~1e8 at the lowest frequencies, so both
+                # devices round A' to ~1e-8 absolute
+                big = float(torch.complex(*a["cpu"]).abs().max())
+                for c_, h_ in zip(a["cuda"], a["cpu"]):
+                    err = float((c_ - h_).abs().max())
+                    worst = max(worst, err / big)
+                    worst_part = max(worst_part, err / float(h_.abs().max()))
+    print(f"parity ddt A: 12 configurations x 2 parts, N=81, K=81, float64,"
+          f" largest |card - cpu| / max|A' + j A''| {worst:.3e} (of the "
+          f"part's own largest entry: {worst_part:.3e}) "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    if worst > 1e-12:
+        failed.append("ddt_A")
+
+    f_desc = np.sort(freq)[::-1]
+    zd = np.ascontiguousarray(zb[:SP_B_SAMPLE, np.argsort(freq)[::-1]])
+    vgs, data = {}, {}
+    for dev in ("cuda", "cpu"):
+        _, _, _, cfg, dat, _ = batch._build_shared(
+            f_desc, mode="sample", distributions=dists, nonneg=True,
+            ncp=True, dtype=torch.float64, device=dev)
+        _, tgt = batch._scaled_targets(zd, SP_B_SAMPLE, None, torch.float64,
+                                       dev, dists)
+        tgt = tgt.repeat_interleave(CHAINS, dim=0)
+        vgs[dev] = posterior_value_and_grad(cfg, dat, tgt)
+    R = SP_B_SAMPLE * CHAINS
+    q_np = np.random.default_rng(12).uniform(-2.0, 2.0, (R, 4 * 81 + 12))
+    res = {dev: [t.cpu() for t in vgs[dev](torch.tensor(q_np, device=dev))]
+           for dev in ("cuda", "cpu")}
+    lp_rel = float(((res["cuda"][0] - res["cpu"][0]).abs()
+                    / res["cpu"][0].abs()).max())
+    g_rel = float((torch.linalg.norm(res["cuda"][1] - res["cpu"][1], dim=1)
+                   / torch.linalg.norm(res["cpu"][1], dim=1)).max())
+    print(f"parity sp value and grad: R={R}, D={q_np.shape[1]}, float64, "
+          f"logp largest relative difference {lp_rel:.3e}, grad largest "
+          f"normwise relative difference {g_rel:.3e} [{card}]")
+    if lp_rel > 1e-10 or g_rel > 1e-9:
+        failed.append("value_and_grad")
+
+    d = sampled.diagnostics
+    q0 = np.asarray(d["state_q"], np.float64).reshape(R, -1)
+    m0 = np.asarray(d["state_inv_mass"], np.float64).reshape(R, -1)
+    e0 = np.asarray(d["state_step_size"], np.float64).reshape(R)
+
+    def rows(dev):
+        q = torch.tensor(q0, device=dev)
+        return (vgs[dev], q, *vgs[dev](q), torch.tensor(e0, device=dev),
+                torch.tensor(m0, device=dev))
+
+    bad = nuts_transition_parity(card, "parity sp nuts", R, SP_DEPTH, 13,
+                                 rows)
+    if bad > 0.001 * R:
+        failed.append("nuts")
+    if failed:
+        raise AssertionError(f"series-parallel parity failed: {failed}")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1203,7 +1543,9 @@ def main(argv):
     phase_parity(card, state)
     mp = phase_map(card)
     phase_map_parity(card)
-    launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] for k in launches}
+    sp = phase_multidist(card)
+    launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] + sp[k]
+                for k in launches}
     kernels = [
         dict(name="drt_quad", route="cuda",
              source="bayes_drt_tpu_torch/csrc/quad.cu",

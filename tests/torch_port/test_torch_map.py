@@ -227,7 +227,7 @@ def test_run_lbfgs_float32_tolerance_floor():
 def _map_rows(b=2, seed=3):
     """MapObjective of a small batch and Stan-random starts."""
     freq, Zb = _batch(b)
-    _, _, _, cfg, data = batch._build_shared(
+    _, _, _, cfg, data, _ = batch._build_shared(
         freq, mode="optimize", dtype=torch.float64, device="cpu")
     Zb = Zb[:, np.argsort(freq)[::-1]]
     _, targets = batch._scaled_targets(Zb, b, None, torch.float64, "cpu")
@@ -420,7 +420,8 @@ def test_fit_optimize_matches_jax_from_matched_starts(case, monkeypatch):
     assert err.max() < 1e-6, err.max(axis=1)
     d, dj = got.diagnostics, want.diagnostics
     np.testing.assert_allclose(d["value"], dj["value"], rtol=1e-6)
-    assert set(d) == {"value", "n_iter", "grad_norm", "converged"}
+    assert set(d) == set(dj) == {"value", "n_iter", "grad_norm", "converged",
+                                 "dist_geometry"}
     assert d["n_iter"].dtype == np.float32 and d["converged"].dtype == bool
 
 
@@ -477,7 +478,7 @@ def test_build_shared_options_match_jax(mode):
     package, in both modes (the mode's L scales and ups prior included)."""
     bf = np.logspace(3.5, 0.5, 25)
     kw = dict(basis_freq=bf, epsilon=3.0, sigma_min=0.01)
-    _, tau, eps, cfg, data = batch._build_shared(
+    _, tau, eps, cfg, data, _ = batch._build_shared(
         FREQ, mode=mode, dtype=torch.float64, device="cpu", **kw)
     _, tau_j, eps_j, cfg_j, data_j, _ = jax_batch._build_shared(
         FREQ, mode=mode, dtype=jnp.float64, **kw)
@@ -495,11 +496,13 @@ def test_build_shared_options_match_jax(mode):
 
 def test_optimize_errors_and_options():
     freq, Zb = _batch(1)
+    ddt = {"DDT": {"kernel": "DDT", "bc": "transmissive"}}
+    with pytest.raises(NotImplementedError, match="item 11"):
+        batch.fit_spectra_batch(freq, Zb, mode="optimize", distributions=ddt,
+                                init_from_ridge=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
-        batch.fit_spectra_batch(freq, Zb, mode="optimize", outliers=True,
+        batch.fit_spectra_batch(freq, Zb, outliers=True, sampler="shmc",
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        batch.fit_spectra_batch(freq, Zb, outliers=True, device="cpu")
     with pytest.raises(ValueError, match="mode='sample'"):
         batch.fit_spectra_batch(freq, Zb, mode="optimize", quality="strict",
                                 device="cpu")

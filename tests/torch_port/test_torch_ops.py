@@ -81,7 +81,7 @@ def test_build_shared_matches_jax(ncp, nonneg):
     freq = np.logspace(5, -1, 31)
     _, tau_j, eps_j, cfg_j, data_j, _ = jax_build_shared(
         freq, mode="sample", ncp=ncp, nonneg=nonneg, dtype=jnp.float64)
-    _, tau, eps, cfg, data = _build_shared(freq, ncp=ncp, nonneg=nonneg,
+    _, tau, eps, cfg, data, _ = _build_shared(freq, ncp=ncp, nonneg=nonneg,
                                            dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(tau, tau_j, rtol=1e-14)
     assert eps == pytest.approx(eps_j, rel=1e-14)
@@ -101,6 +101,9 @@ def test_build_shared_matches_jax(ncp, nonneg):
 def test_construct_A_rejects_unported_kernels():
     freq, tau, eps = _grid(11)
     with pytest.raises(NotImplementedError):
-        construct_A(freq, "real", tau=tau, kernel="DDT", device="cpu")
+        construct_A(freq, "real", tau=tau, kernel="DDT", basis="Cole-Cole",
+                    device="cpu")
     with pytest.raises(NotImplementedError):
         construct_A(freq, "real", tau=tau, basis="Zic", device="cpu")
+    with pytest.raises(ValueError, match="Invalid kernel"):
+        construct_A(freq, "real", tau=tau, kernel="RQ", device="cpu")
