@@ -90,8 +90,8 @@ def find_reasonable_step_size(value_and_grad, q, logp, grad, z, m_inv,
     """Double/halve eps per row until the one-step acceptance crosses ~0.5
     (Hoffman & Gelman 2014, as in Stan's init_stepsize).
 
-    Rows: q, grad, z, m_inv (R, D); logp (R,). ``z`` are the standard
-    normals of the momentum. The JAX version is a vmapped while_loop; here
+    Rows: q, grad, z, m_inv (R, D); logp (R,); ``init_eps`` a float or
+    per-row (R,). ``z`` are the standard normals of the momentum. The JAX version is a vmapped while_loop; here
     every row steps until none is active, and a row that has stopped keeps
     its value, which is what the vmapped loop computes."""
     p0 = _sample_momentum(z, m_inv)
@@ -103,7 +103,8 @@ def find_reasonable_step_size(value_and_grad, q, logp, grad, z, m_inv,
         r = H0 - (-lp1 + _kinetic(p1, m_inv))
         return torch.where(torch.isnan(r), torch.full_like(r, -math.inf), r)
 
-    eps = torch.full_like(logp, init_eps)
+    eps = torch.as_tensor(init_eps, dtype=logp.dtype,
+                          device=logp.device).expand_as(logp).clone()
     r = ratio(eps)
     direction = torch.where(r > log_half, 1.0, -1.0).to(eps.dtype)
     factor = torch.pow(torch.full_like(eps, 2.0), direction)

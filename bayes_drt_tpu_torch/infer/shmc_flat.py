@@ -9,7 +9,8 @@ tractable for the single series-DRT model (the Stan
 ``Series``/``Series_pos`` model), centered or non-centered.
 ``flat_value_and_grad`` is that hand-written form in plain torch, held to
 autograd of models/posterior.log_density by the tests;
-``_traj_plain`` is the plain trajectory the kernel is held to.
+``_traj_plain``, the generic trajectory of infer/chees.py on it, is the
+plain trajectory the kernel is held to.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from .. import _build
 from ..models.posterior import init_unconstrained, ravel
+from .chees import run_shmc, shmc_trajectory
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -309,64 +311,16 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target,
 
 # ===================== trajectory =====================
 
-def _leaf_step(spec, shared, m_inv, epsc, q_init, p_init, g_init, lp_init,
-               H0, j, targets, max_e, i, u, st):
-    """One leapfrog + streaming-multinomial-selection step over (R, D) rows:
-    the backward leg with flipped momentum until i == j, then the forward
-    leg; a leg freezes on NaN or when dH > max_e and is never selected.
-    Per-row scalars are (R, 1) columns; dead/ever are bool columns."""
-    (qq, pp, gg, lp, logw, pq, plp, pgq, pkin, sacc, dead, ever) = st
-    if i == j:
-        qq, pp, gg, lp = q_init, p_init, g_init, lp_init
-        dead = torch.zeros_like(dead)
-    p_half = pp + 0.5 * epsc * gg
-    q_new = qq + epsc * p_half * m_inv
-    lp1, g_new = flat_value_and_grad(spec, shared.A, shared.L, shared.vecs,
-                                     shared.scal, q_new, targets)
-    lp_new = lp1[:, None]
-    p_new = p_half + 0.5 * epsc * g_new
-    kin = 0.5 * torch.sum(p_new * p_new * m_inv, dim=1, keepdim=True)
-    Hn = -lp_new + kin
-    w = H0 - Hn
-    badf = torch.isnan(Hn) | ((Hn - H0) > max_e)
-    w = torch.where(badf | dead, torch.full_like(w, -math.inf), w)
-    logw_new = torch.logaddexp(logw, w)
-    take = torch.log(u) < (w - logw_new)
-    pq = torch.where(take, q_new, pq)
-    plp = torch.where(take, lp_new, plp)
-    pgq = torch.where(take, g_new, pgq)
-    pkin = torch.where(take, kin, pkin)
-    sacc = sacc + torch.clamp(torch.exp(w), max=1.0)
-    dead_new = dead | badf
-    ever = ever | dead_new
-    alive = ~dead_new
-    return (torch.where(alive, q_new, qq), torch.where(alive, p_new, pp),
-            torch.where(alive, g_new, gg), torch.where(alive, lp_new, lp),
-            logw_new, pq, plp, pgq, pkin, sacc, dead_new, ever)
-
-
-def _traj_init_state(q, p0, grad, lp_col, kin0):
-    """The initial state enters the multinomial with weight 1 (logw = 0);
-    the backward leg starts from -p0."""
-    z = torch.zeros_like(lp_col)
-    f = torch.zeros_like(lp_col, dtype=torch.bool)
-    return (q, -p0, grad, lp_col, z, q, lp_col, grad, kin0, z, f, f)
-
-
 def _traj_plain(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
                 m_inv_rows, targets, j, u_sel):
-    """The plain trajectory: a Python loop over leaves of _leaf_step.
-    Returns (q, logp, grad, kin, sacc, diverging) of the selected point."""
-    kin0 = 0.5 * torch.sum(p0 * p0 * m_inv_rows, dim=1, keepdim=True)
-    lp_col = logp[:, None]
-    H0 = -lp_col + kin0
-    epsc = eps[:, None]
-    st = _traj_init_state(q, p0, grad, lp_col, kin0)
-    for i in range(n_leap):
-        st = _leaf_step(spec, shared, m_inv_rows, epsc, q, p0, grad, lp_col,
-                        H0, j, targets, max_e, i, u_sel[i][:, None], st)
-    (_, _, _, _, _, pq, plp, pgq, pkin, sacc, _, ever) = st
-    return pq, plp[:, 0], pgq, pkin[:, 0], sacc[:, 0], ever[:, 0]
+    """The plain trajectory: the generic trajectory (infer/chees.py) on the
+    hand-written value and gradient. Returns (q, logp, grad, kin, sacc,
+    diverging) of the selected point."""
+    def vg(q2):
+        return flat_value_and_grad(spec, shared.A, shared.L, shared.vecs,
+                                   shared.scal, q2, targets)
+    return shmc_trajectory(vg, n_leap, max_e, q, p0, grad, logp, eps,
+                           m_inv_rows, j, u_sel)
 
 
 def _spec_ints(spec: FlatSpec):
@@ -450,165 +404,32 @@ traj_fused.launches = 0
 
 # ===================== sampler =====================
 
-def generator_noise(generator, rows, dim, dtype, device, n_leaps):
-    """The default noise stream: the eps0 momentum normals (R, D), then per
-    draw (z (R, D), u_sel (n_leap, R)) from ``generator``."""
-    def stream():
-        yield torch.randn((rows, dim), generator=generator, dtype=dtype,
-                          device=device)
-        for nl in n_leaps:
-            z = torch.randn((rows, dim), generator=generator, dtype=dtype,
-                            device=device)
-            u = torch.rand((nl, rows), generator=generator, dtype=dtype,
-                           device=device)
-            yield z, u
-    return stream
-
-
 def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0,
                      warmup: int, samples: int, cfg, chains: int,
                      generator=None, noise=None, time_traj: bool = False):
     """Synchronous static multinomial HMC over ONE flat chain axis.
 
     The batch (B spectra x ``chains``) runs as (B*chains, D) rows through
-    one ``traj_fused`` call per draw. Adaptation matches the JAX package's
-    sample_shmc: per-row dual averaging; Welford pooled within chain, then
-    averaged per spectrum into that spectrum's diagonal metric; a
-    per-spectrum pooled sampling step size.
+    one ``traj_fused`` call per draw, in the adaptation loop of the generic
+    sampler (infer/chees.py:run_shmc, the JAX package's sample_shmc per
+    spectrum). ``cfg.recompute_grad`` has no effect: the kernel returns
+    the selected state's gradient.
 
     targets: (B*chains, 2n) per-row scaled impedance; q0: (B*chains, D).
-    ``noise`` is a zero-argument callable returning an iterator that yields
-    the eps0 momentum normals (R, D) once and then (z (R, D), u_sel
-    (n_leap, R)) per draw; by default it draws from ``generator``.
-    ``time_traj`` brackets every trajectory launch with CUDA events and
-    returns the per-draw device times (ms) under ``info['traj_ms']``.
-    Returns (draws (B, C, S, D), info dict with a leading B axis).
+    ``noise`` and ``generator`` are run_shmc's. ``time_traj`` brackets
+    every trajectory launch with CUDA events and returns the per-draw
+    device times (ms) under ``info['traj_ms']``. Returns (draws (B, C, S,
+    D), info dict with a leading B axis).
     """
-    from .chees import _halton2, _pool_eps
-    from .nuts import (_da_init, _da_update, _regularized_variance,
-                       _window_flags, find_reasonable_step_size)
-
-    cfg.validate()
-    rt, dim = q0.shape
-    nb = rt // chains
-    dtype, dev = q0.dtype, q0.device
-    n_leap_s = cfg.n_steps
-    n_leap_w = cfg.warm_steps or cfg.n_steps
     max_e = cfg.max_energy_error
-    total = warmup + samples
-    nl_sched = np.concatenate([np.full(warmup, n_leap_w),
-                               np.full(samples, n_leap_s)]).astype(int)
-    if noise is None:
-        if generator is None:
-            raise ValueError("pass a torch.Generator or a noise stream")
-        noise = generator_noise(generator, rt, dim, dtype, dev, nl_sched)
-    stream = noise()
 
     def vg(q2):
         return flat_value_and_grad(spec, shared.A, shared.L, shared.vecs,
                                    shared.scal, q2, targets)
 
-    def rows(m_inv):
-        return m_inv[:, None, :].expand(nb, chains, dim).reshape(rt, dim)
+    def traj(n_leap, q, p0, grad, logp, eps, m_inv_rows, j, u_sel):
+        return traj_fused(spec, n_leap, max_e, shared, q, p0, grad, logp,
+                          eps, m_inv_rows, targets, j, u_sel)
 
-    logp, grad = vg(q0)
-    q = q0
-    m_inv = torch.ones((nb, dim), dtype=dtype, device=dev)
-    eps0 = find_reasonable_step_size(vg, q0, logp, grad, next(stream),
-                                     rows(m_inv))
-
-    if cfg.adapt_mass:
-        in_slow, win_end = _window_flags(warmup, cfg)
-    else:
-        in_slow = win_end = np.zeros(warmup, bool)
-    h1 = _halton2(total)
-    h2 = _halton2(2 * total)[total:]
-    jit_mult = torch.as_tensor(cfg.jitter_lo + (1.0 - cfg.jitter_lo) * h1,
-                               dtype=dtype, device=dev)
-    j_split = np.floor(h2 * (nl_sched + 1)).clip(0, nl_sched).astype(int)
-
-    da = _da_init(eps0)
-    wf_mean = torch.zeros((rt, dim), dtype=dtype, device=dev)
-    wf_m2 = torch.zeros((rt, dim), dtype=dtype, device=dev)
-    wf_n = 0.0
-    eps_fixed = None
-    draws = torch.empty((samples, rt, dim), dtype=dtype, device=dev)
-    logp_s = torch.empty((samples, rt), dtype=dtype, device=dev)
-    acc_s = torch.empty((samples, rt), dtype=dtype, device=dev)
-    div_s = torch.empty((samples, rt), dtype=torch.bool, device=dev)
-    en_s = torch.empty((samples, rt), dtype=dtype, device=dev)
-    warm_div = torch.empty((warmup, rt), dtype=torch.bool, device=dev)
-    events = []
-
-    for t in range(total):
-        n_leap = int(nl_sched[t])
-        if t < warmup:
-            eps = torch.exp(da.log_eps)
-        else:
-            if eps_fixed is None:
-                pooled = _pool_eps(torch.exp(da.log_eps_bar).reshape(
-                    nb, chains), cfg)
-                eps_fixed = (pooled if pooled.ndim == 2 else
-                             pooled[:, None].expand(nb, chains)).reshape(rt)
-            eps = eps_fixed
-        eps = eps * jit_mult[t]
-        z, u_sel = next(stream)
-        m_inv_rows = rows(m_inv).contiguous()
-        p0 = z / torch.sqrt(m_inv_rows)
-        if time_traj:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        q, logp, grad, kin, sacc, ever = traj_fused(
-            spec, n_leap, max_e, shared, q, p0, grad, logp, eps.contiguous(),
-            m_inv_rows, targets, int(j_split[t]), u_sel.contiguous())
-        if time_traj:
-            ev[1].record()
-            events.append(ev)
-        accept_prob = sacc / n_leap
-        if t >= warmup:
-            s = t - warmup
-            draws[s] = q
-            logp_s[s] = logp
-            acc_s[s] = accept_prob
-            div_s[s] = ever
-            en_s[s] = -logp + kin
-            continue
-        warm_div[t] = ever
-        da = _da_update(da, accept_prob, cfg)
-        if cfg.adapt_mass:
-            if in_slow[t]:
-                n1 = wf_n + 1.0
-                dlt = q - wf_mean
-                wf_mean = wf_mean + dlt / n1
-                wf_m2 = wf_m2 + dlt * (q - wf_mean)
-                wf_n = n1
-            if win_end[t]:
-                if wf_n > 1:
-                    var_within = (wf_m2 / max(wf_n - 1.0, 1.0)).reshape(
-                        nb, chains, dim).mean(dim=1)
-                    m_inv = _regularized_variance(var_within, chains * wf_n)
-                wf_mean = torch.zeros_like(wf_mean)
-                wf_m2 = torch.zeros_like(wf_m2)
-                wf_n = 0.0
-                da = _da_init(torch.exp(da.log_eps))
-
-    def per_spec(x):
-        # (T, rt, ...) -> (B, C, T, ...)
-        return x.reshape((x.shape[0], nb, chains) + x.shape[2:]).movedim(0, 2)
-
-    info = {
-        "logp": per_spec(logp_s),
-        "accept_prob": per_spec(acc_s),
-        "diverging": per_spec(div_s),
-        "n_leapfrog": torch.full((nb, chains, samples), n_leap_s,
-                                 dtype=torch.int32, device=dev),
-        "energy": per_spec(en_s),
-        "step_size": torch.exp(da.log_eps_bar).reshape(nb, chains),
-        "inv_mass": m_inv,
-        "warmup_diverging": per_spec(warm_div),
-    }
-    if time_traj:
-        torch.cuda.synchronize(dev)
-        info["traj_ms"] = [a.elapsed_time(b) for a, b in events]
-    return per_spec(draws), info
+    return run_shmc(vg, traj, q0, warmup, samples, cfg, chains,
+                    generator=generator, noise=noise, time_traj=time_traj)

@@ -19,8 +19,11 @@ flat vectors cross between the two packages unchanged. ``constrain``,
 ``predict_target`` and ``log_density`` broadcast over leading batch
 dimensions of the parameters and of ``data.target``: the gradient of
 ``log_density(...).sum()`` is every row's gradient in one backward pass
-(``posterior_value_and_grad``). Nothing here synchronizes with the host,
-so that value and gradient can be captured in a CUDA graph.
+(``posterior_value_and_grad``). Spectra measured on different grids
+carry per-spectrum data: A (B, 2N, K), freq (B, N) and lik_mask (B, 2N),
+which ``group_data`` shapes to broadcast against parameters grouped (B,
+rows, ...). Nothing here synchronizes with the host, so that value and
+gradient can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -87,10 +90,11 @@ class PosteriorConfig(NamedTuple):
 
 class PosteriorData(NamedTuple):
     """Numeric inputs, torch tensors on one device in one dtype."""
-    A: tuple                # per dist: (2N, K) stacked [[A'], [A'']]
+    A: tuple                # per dist: (2N, K) stacked [[A'], [A'']], or
+                            # (B, 2N, K) per spectrum
     L: tuple                # per dist: (3, K, K) mode-scaled L0/L1/L2
     target: torch.Tensor    # (..., 2N) stacked Z (or Y when fitY)
-    freq: torch.Tensor      # (N,)
+    freq: torch.Tensor      # (N,), or (B, N) per spectrum
     sigma_min: torch.Tensor
     ups_alpha: torch.Tensor
     ups_beta: torch.Tensor
@@ -101,7 +105,20 @@ class PosteriorData(NamedTuple):
     sigma_out_alpha: torch.Tensor
     sigma_out_beta: torch.Tensor
     lik_mask: torch.Tensor  # (2N,) 1/0 mask for part='both'/'real'/'imag'
+                            # (and padded frequencies), or (B, 2N)
     sa_inv: object = None   # (2N,) S_inv diagonal when cfg.sa
+
+
+def group_data(data: PosteriorData, sl=slice(None)) -> PosteriorData:
+    """Per-spectrum data (freq (B, N)) restricted to the spectra ``sl``,
+    with freq and lik_mask given a row axis ((b, 1, N), (b, 1, 2N)) and A
+    left (b, 2N, K), so that all of it broadcasts against parameters
+    grouped (b, rows, ...). Shared-grid data is returned as it is."""
+    if data.freq.ndim != 2:
+        return data
+    return data._replace(A=tuple(a[sl] for a in data.A),
+                         freq=data.freq[sl, None],
+                         lik_mask=data.lik_mask[sl, None])
 
 
 def _x_is_positive(cfg: PosteriorConfig, dist: DistConfig) -> bool:
@@ -181,7 +198,7 @@ def init_unconstrained(cfg: PosteriorConfig, data: PosteriorData,
     ``ncp``, the drawn ups are inverted) and ``sigma_out_raw``."""
     dt, dev = data.freq.dtype, data.freq.device
     params = {}
-    for name, shape in param_shapes(cfg, data.freq.shape[0]):
+    for name, shape in param_shapes(cfg, data.freq.shape[-1]):
         u = torch.rand(tuple(batch_shape) + shape, generator=generator,
                        dtype=dt, device=dev)
         params[name] = (2.0 * jitter) * u - jitter
@@ -254,10 +271,10 @@ def predict_target(cfg: PosteriorConfig, data: PosteriorData, c: dict):
     Series distributions contribute A @ x; parallel ones the elementwise
     complex inversion of Y = A @ x; R_inf and the inductance offsets are
     added unless fitY."""
-    n = data.freq.shape[0]
+    n = data.freq.shape[-1]
     pred = None
     for i, d in enumerate(cfg.dists):
-        contrib = c[f"x_{i}"] @ data.A[i].T
+        contrib = c[f"x_{i}"] @ data.A[i].transpose(-1, -2)
         if d.dist_type == "parallel" and not cfg.fitY:
             y_re, y_im = contrib[..., :n], contrib[..., n:]
             denom = y_re ** 2 + y_im ** 2
@@ -267,9 +284,9 @@ def predict_target(cfg: PosteriorConfig, data: PosteriorData, c: dict):
         pred = data.sa_inv * pred
     if not cfg.fitY:
         rinf_vec = torch.cat([torch.ones_like(data.freq),
-                              torch.zeros_like(data.freq)])
+                              torch.zeros_like(data.freq)], dim=-1)
         induc_vec = torch.cat([torch.zeros_like(data.freq),
-                               2.0 * math.pi * data.freq])
+                               2.0 * math.pi * data.freq], dim=-1)
         pred = (pred + c["Rinf"][..., None] * rinf_vec
                 + c["induc"][..., None] * induc_vec)
     return pred
@@ -277,7 +294,7 @@ def predict_target(cfg: PosteriorConfig, data: PosteriorData, c: dict):
 
 def sigma_tot(cfg: PosteriorConfig, data: PosteriorData, c: dict, pred):
     """Heteroscedastic error scale (Stan Series model), (..., 2N)."""
-    n = data.freq.shape[0]
+    n = data.freq.shape[-1]
     pred_re = pred[..., :n].tile(2)
     pred_im = pred[..., n:].tile(2)
     var = (data.sigma_min ** 2 + c["sigma_res"][..., None] ** 2
@@ -302,7 +319,7 @@ def log_density(cfg: PosteriorConfig, data: PosteriorData, params: dict,
     measure on the unconstrained space; jacobian=False is Stan's
     ``optimizing`` objective (MAP in constrained space)."""
     c = constrain(cfg, data, params)
-    n = data.freq.shape[0]
+    n = data.freq.shape[-1]
     terms = []
     # log|J| of the exp transforms of every <lower=0> parameter
     if jacobian:
@@ -377,16 +394,25 @@ def posterior_value_and_grad(cfg: PosteriorConfig, data: PosteriorData,
     counterpart of the JAX package's ``jax.value_and_grad`` of
     ``log_density`` vmapped over rows): returns ``vg(q)`` taking flat rows
     q (R, D), row r fitting ``targets[r]`` (R, 2N), and returning (logp
-    (R,), grad (R, D)) from one backward pass of ``logp.sum()``. No host
-    synchronization, so CUDA graphs can capture it (the NUTS trees and the
-    L-BFGS iterations do)."""
-    dat = data._replace(target=targets)
+    (R,), grad (R, D)) from one backward pass of ``logp.sum()``. With
+    per-spectrum data (freq (B, N)) the rows are grouped spectrum-major,
+    row r fitting spectrum r // (R / B), and each spectrum's A multiplies
+    its own rows only. No host synchronization, so CUDA graphs can capture
+    it (the NUTS trees, the SHMC trajectories and the L-BFGS iterations
+    do)."""
+    nb = data.freq.shape[0] if data.freq.ndim == 2 else None
+    if nb is None:
+        dat = data._replace(target=targets)
+    else:
+        dat = group_data(data)._replace(
+            target=targets.reshape(nb, -1, targets.shape[-1]))
 
     def vg(q):
         with torch.enable_grad():
             x = q.detach().requires_grad_(True)
-            lp = log_density(cfg, dat, unravel(cfg, x), jacobian=jacobian)
+            xs = x if nb is None else x.reshape(nb, -1, x.shape[-1])
+            lp = log_density(cfg, dat, unravel(cfg, xs), jacobian=jacobian)
             (g,) = torch.autograd.grad(lp.sum(), x)
-        return lp.detach(), g
+        return lp.detach().reshape(-1), g
 
     return vg

@@ -1,6 +1,6 @@
-"""Gaussian radial basis function in y = ln(tau/tau_m) space, its
-derivatives and its penalty inner products, and the Cole-Cole basis of the
-simulator (torch port of bayes_drt_tpu/ops/basis.py:14,19,45,80)."""
+"""Radial basis functions in y = ln(tau/tau_m) space (Gaussian, Cole-Cole
+and Zic), the Gaussian's derivatives and its penalty inner products
+(torch port of bayes_drt_tpu/ops/basis.py)."""
 
 from __future__ import annotations
 
@@ -20,6 +20,24 @@ def cole_cole_rbf(y, epsilon):
     u = (1.0 - epsilon) * math.pi
     return (1.0 / (2.0 * math.pi)) * math.sin(u) / (torch.cosh(epsilon * y)
                                                     - math.cos(u))
+
+
+def zic_rbf(y, epsilon=None):
+    """Zic basis: 2 e^y / (1 + e^{2y}) = sech(y); ``epsilon`` is unused."""
+    del epsilon
+    return 1.0 / torch.cosh(y)
+
+
+_BASES = {"gaussian": gaussian_rbf, "Cole-Cole": cole_cole_rbf,
+          "Zic": zic_rbf}
+
+
+def get_basis_func(basis: str = "gaussian"):
+    try:
+        return _BASES[basis]
+    except KeyError:
+        raise ValueError(f"Invalid basis {basis!r}. Options are "
+                         f"{sorted(_BASES)}") from None
 
 
 def gaussian_rbf_dy(y, epsilon, order):

@@ -15,10 +15,14 @@ import numpy as np
 import torch
 
 from .._numerics import resolve_device, resolve_dtype
-from .basis import (gaussian_penalty_inner_product, gaussian_rbf,
-                    gaussian_rbf_dy)
+from .basis import (gaussian_penalty_inner_product, gaussian_rbf_dy,
+                    get_basis_func)
 from .kernels import ddt_kernel
 from .quad import drt_quad
+
+# elements of a DDT integrand chunk: (rows, K, Q) blocks of at most this
+# many complex entries bound the workspace of a long (ragged) grid
+_DDT_CHUNK = 1 << 24
 
 
 def get_tau_basis(frequencies, extend_decades: float = 1.0, ppd: int = 10):
@@ -65,19 +69,18 @@ def construct_A(frequencies, part, tau=None, basis: str = "gaussian",
                 k_ct=None, n_quad: int = 1000, y_max: float = 20.0,
                 dtype=None, device=None):
     """A matrix: A[n, m] = int phi(y) K(y, w_n, tau_m) dy, by the trapezoid
-    rule on [-y_max, y_max] with the Gaussian basis. A' @ x and A'' @ x
-    give the real/imag impedance (series) or admittance (parallel)
-    contributions of the distribution.
+    rule on [-y_max, y_max] with the ``basis`` phi (gaussian, Cole-Cole or
+    Zic). A' @ x and A'' @ x give the real/imag impedance (series) or
+    admittance (parallel) contributions of the distribution.
 
     The series DRT runs through ops/quad.py:drt_quad (the hand-written
-    kernel on a CUDA device, its plain einsum form on the CPU). A DDT
+    kernel on a CUDA device, its plain einsum form on the CPU), which
+    takes the basis folded into the quadrature weights. A DDT
     (``symmetry``, ``bc`` -- transmissive by default -- and the charge
-    transfer ``ct`` with ``k_ct``) is plain torch on the device: the (N, K,
-    Q) complex integrand contracted with the trapezoid weights, as the JAX
-    package builds it outside any Pallas kernel."""
-    if basis != "gaussian":
-        raise NotImplementedError(f"only the gaussian basis is ported "
-                                  f"(got {basis!r})")
+    transfer ``ct`` with ``k_ct``) is plain torch on the device: the
+    complex integrand contracted with the trapezoid weights, as the JAX
+    package builds it outside any Pallas kernel, in blocks of frequency
+    rows of at most ``_DDT_CHUNK`` entries."""
     if part not in ("real", "imag"):
         raise ValueError(f"Invalid part {part!r}")
     if ct and k_ct is None:
@@ -86,7 +89,7 @@ def construct_A(frequencies, part, tau=None, basis: str = "gaussian",
     dt = resolve_dtype(torch.float64 if dtype is None else dtype)
     omega, tau_t = _omega_tau(frequencies, tau, dt, dev)
     y, w = _quad_grid(n_quad, y_max, dt, dev)
-    phi = gaussian_rbf(y, float(epsilon))
+    phi = get_basis_func(basis)(y, float(epsilon))
     if kernel == "DRT":
         if dist_type != "series":
             raise ValueError("dist_type for DRT kernel must be series")
@@ -95,27 +98,34 @@ def construct_A(frequencies, part, tau=None, basis: str = "gaussian",
     if kernel != "DDT":
         raise ValueError(f"Invalid kernel {kernel!r}. Options are DRT and "
                          "DDT")
-    f = ddt_kernel(y[None, None, :], omega[:, None, None],
-                   tau_t[None, :, None], part, dist_type, symmetry,
-                   "transmissive" if bc is None else bc, bool(ct),
-                   0.0 if k_ct is None else k_ct)
-    return torch.einsum("nkq,q->nk", phi * f, w)
+    step = max(1, _DDT_CHUNK // (len(tau_t) * n_quad))
+    out = []
+    for i in range(0, len(omega), step):
+        f = ddt_kernel(y[None, None, :], omega[i:i + step, None, None],
+                       tau_t[None, :, None], part, dist_type, symmetry,
+                       "transmissive" if bc is None else bc, bool(ct),
+                       0.0 if k_ct is None else k_ct)
+        out.append(torch.einsum("nkq,q->nk", phi * f, w))
+    return torch.cat(out)
 
 
 def construct_L(frequencies, tau=None, basis: str = "gaussian", epsilon=1.0,
                 order=1, dtype=None, device=None):
     """Differentiation matrix: (L @ x)[n] is the ``order``-th derivative of
-    the distribution at collocation point 1/w_n (Gaussian basis)."""
-    if basis != "gaussian":
-        raise NotImplementedError(f"only the gaussian basis is ported "
-                                  f"(got {basis!r})")
+    the distribution at collocation point 1/w_n: any order of the Gaussian
+    basis, order 0 of the Zic basis."""
     dev = resolve_device(device)
     dt = resolve_dtype(torch.float64 if dtype is None else dtype)
     omega, tau_t = _omega_tau(frequencies, tau, dt, dev)
     y = -torch.log(omega[:, None] * tau_t[None, :])
-    if isinstance(order, (list, tuple, np.ndarray)):
-        order = tuple(float(o) for o in order)
-    return gaussian_rbf_dy(y, float(epsilon), order)
+    if basis == "gaussian":
+        if isinstance(order, (list, tuple, np.ndarray)):
+            order = tuple(float(o) for o in order)
+        return gaussian_rbf_dy(y, float(epsilon), order)
+    if basis == "Zic" and not isinstance(order, (list, tuple, np.ndarray)) \
+            and order == 0:
+        return get_basis_func(basis)(y, epsilon)
+    raise ValueError(f"Unsupported (basis={basis!r}, order={order!r})")
 
 
 def construct_M(frequencies, basis: str = "gaussian", order=1, epsilon=1.0,

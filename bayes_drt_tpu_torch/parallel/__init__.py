@@ -1,5 +1,6 @@
 from .batch import (BatchFitResult, evaluate_gamma, fit_spectra_batch,
-                    predict_Z_batch, ridge_fit_spectra_batch)
+                    fit_spectra_ragged, predict_Z_batch,
+                    ridge_fit_spectra_batch)
 
 __all__ = ["BatchFitResult", "evaluate_gamma", "fit_spectra_batch",
-           "predict_Z_batch", "ridge_fit_spectra_batch"]
+           "fit_spectra_ragged", "predict_Z_batch", "ridge_fit_spectra_batch"]

@@ -1,26 +1,30 @@
-"""Batched Bayesian inversion of many spectra on one frequency grid (port
-of bayes_drt_tpu/parallel/batch.py).
+"""Batched Bayesian inversion of many spectra (port of
+bayes_drt_tpu/parallel/batch.py).
 
-``fit_spectra_batch`` fits any model of the distributions mini-DSL (DRT
-and DDT, series and parallel, any number of each, with or without the
-outlier error). ``mode='sample'`` samples B spectra x C chains as one
-(B*C, D) chain axis through NUTS (infer/nuts.py, the default) or, for the
-single series DRT, the flat-chain SHMC sampler (infer/shmc_flat.py, every
-draw one launch of the hand-written trajectory kernel), summarizes each
+``fit_spectra_batch`` fits spectra on one frequency grid with any model
+of the distributions mini-DSL (DRT and DDT, series and parallel, any
+number of each, with or without the outlier error). ``mode='sample'``
+samples B spectra x C chains as one (B*C, D) chain axis through NUTS
+(infer/nuts.py, the default) or SHMC: the flat-chain sampler for the
+single series DRT (infer/shmc_flat.py, every draw one launch of the
+hand-written trajectory kernel), the generic autograd sampler
+(infer/chees.py) for every other model, and summarizes each
 spectrum's posterior on the device, and by default refits the spectra
 that fail the mixing gate with a ridge-seeded NUTS run spliced into the
 result. ``mode='optimize'`` finds each spectrum's MAP point with the
 batched L-BFGS and Newton polish of infer/map.py, from random restarts or
 a ridge seed. The single series DRT takes the hand-written value and
 gradient; every other model autograd of models/posterior.log_density.
+``fit_spectra_ragged`` fits spectra measured on different grids,
+padded to one length and masked, each with its own A matrices.
 ``ridge_fit_spectra_batch`` is the batched hyper-lambda ridge
 (infer/ridge.py) that seeds both; ``predict_Z_batch`` evaluates a fit's
 impedance. A DRT's A matrices come from the hand-written quadrature
 kernel (ops/quad.py).
 
-Not ported yet: the generic SHMC sampler, ChEES, warm starts, the pooled
-preconditioner, the ridge seed of a single parallel distribution,
-cross-validated and hyper-weights ridge, ragged batches and meshes.
+Not ported yet: ChEES, warm starts, the pooled preconditioner, the ridge
+seed of a single parallel distribution, cross-validated and
+hyper-weights ridge, ``monitor_thin`` and meshes.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from .._numerics import resolve_device, resolve_dtype
-from ..infer.chees import SHMCConfig
+from ..infer.chees import SHMCConfig, sample_shmc
 from ..infer.diagnostics import ess_bulk_jnp, ess_jnp, rhat_rank_jnp
 from ..infer.map import newton_polish, run_lbfgs, run_lbfgs_restarts
 from ..infer.nuts import NUTSConfig, sample_nuts
@@ -44,11 +48,30 @@ from ..infer.shmc_flat import (flat_eligible, flat_shared_for,
                                flat_spec_for, flat_value_and_grad,
                                sample_shmc_flat)
 from ..models.build import build_posterior, sort_distributions, z_scale_for
-from ..models.posterior import (constrain, flat_dim, init_unconstrained,
-                                log_density, posterior_value_and_grad,
-                                predict_target, ravel, unravel)
+from ..models.posterior import (constrain, flat_dim, group_data,
+                                init_unconstrained, log_density,
+                                posterior_value_and_grad, predict_target,
+                                ravel, unravel)
 from ..ops.matrices import (construct_A, construct_L, construct_M,
                             default_epsilon, get_tau_basis)
+
+
+def _phase_clock(timing, dev):
+    """(mark, phases): ``mark(name)`` records under ``phases[name]`` the
+    host seconds since the previous mark (or the call), closed by a device
+    synchronize, when ``timing`` is on."""
+    phases = {}
+    clock = [time.perf_counter()]
+
+    def mark(name):
+        if timing:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            phases[name] = now - clock[0]
+            clock[0] = now
+
+    return mark, phases
 
 
 def _pad_rows(arr, b):
@@ -87,16 +110,19 @@ class BatchFitResult(NamedTuple):
 
 
 # named sampler presets for fit_spectra_batch(quality=...), the JAX
-# package's, less what the port does not have: 'fast' is the bench's SHMC
-# configuration without the bf16x3 matmuls (precision="high") and the scan
-# unroll knobs of the JAX package's compiled loops, and without
-# recompute_grad (the trajectory kernel returns the selected gradient);
-# 'strict' is the calibrated-interval NUTS configuration (md8, not Stan's
-# md10: the DRT posterior's trajectories saturate at ~255 leapfrogs).
+# package's, less the bf16x3 matmuls (precision="high"): the port runs
+# true fp32. 'fast' is the bench's SHMC configuration (the unroll knobs
+# mean nothing here; recompute_grad reaches the generic sampler, the
+# single series DRT's trajectory kernel returns the selected gradient
+# either way); 'strict' is the calibrated-interval NUTS configuration
+# (md8, not Stan's md10: the DRT posterior's trajectories saturate at ~255
+# leapfrogs).
 QUALITY_PRESETS = {
     "fast": dict(
         sampler="shmc", ncp=True, chains=4, warmup=150, samples=250,
-        shmc_cfg=SHMCConfig(n_steps=32, warm_steps=32, eps_quantile=0.5)),
+        shmc_cfg=SHMCConfig(n_steps=32, warm_steps=32, leaf_unroll=2,
+                            draw_unroll=2, recompute_grad=True,
+                            eps_quantile=0.5)),
     "strict": dict(
         sampler="nuts", ncp=True, chains=4, warmup=1000, samples=1000,
         max_tree_depth=8, tree_scan=True, scan_unroll=2),
@@ -461,9 +487,11 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     ``flat_tree`` and the default stop a tree once no chain is still
     building it (the same draws either way). ``unroll`` and
     ``scan_unroll`` tune the JAX package's compiled loops and have no
-    effect here. ``sampler='shmc'`` runs the flat-chain SHMC sampler, one
-    launch of the hand-written trajectory kernel per draw, with
-    ``shmc_cfg`` (the single series DRT only). Runs on CUDA unless
+    effect here. ``sampler='shmc'`` runs static multinomial HMC with
+    ``shmc_cfg``: the flat-chain sampler, one launch of the hand-written
+    trajectory kernel per draw, for the single series DRT without
+    outliers; the generic sampler (autograd, each draw's trajectory one
+    CUDA graph replay on a CUDA device) for every other model. Runs on CUDA unless
     ``device`` says otherwise, float32 unless ``dtype`` says otherwise;
     random numbers come from a torch.Generator seeded with
     ``random_seed``. The single series DRT without outliers takes the
@@ -496,15 +524,17 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     (``diagnostics['phase_s']``: setup, ridge when seeded, then sample and
     summary, or lbfgs and polish, with the L-BFGS part of ``n_iter`` in
     ``diagnostics['n_iter_lbfgs']``), the trajectory kernel's per-draw device
-    times (SHMC, ``diagnostics['traj_ms']``), each NUTS draw's seconds
-    (``diagnostics['draw_s']``) and the escalation refit's seconds
-    (``diagnostics['refit_s']``).
+    times (flat-chain SHMC, ``diagnostics['traj_ms']``), each NUTS or
+    generic SHMC draw's seconds (``diagnostics['draw_s']``), the generic
+    sampler's graph captures (``diagnostics['capture_s']``) and the
+    escalation refit's seconds (``diagnostics['refit_s']``).
 
-    Not ported (they raise, naming their ROADMAP item): ``sampler='shmc'``
-    and the 'fast' preset beyond the single series DRT and bases other
-    than 'gaussian' and ``monitor_thin`` (item 10); a ridge seed of a
-    single parallel distribution, so its default escalation too (item
-    11); ChEES, ``warm_start`` and ``precondition`` (item 12).
+    ``basis`` names the RBF family (construct_L, like the JAX package's,
+    builds the penalty's orders 1 and 2 for 'gaussian' only, so other
+    bases raise its ValueError). Not ported (they raise, naming their
+    ROADMAP item): ``monitor_thin`` (item 10); a ridge seed of a single
+    parallel distribution, so its default escalation too (item 11);
+    ChEES, ``warm_start`` and ``precondition`` (item 12).
     """
     if quality is not None:
         if quality not in QUALITY_PRESETS:
@@ -526,8 +556,6 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if mode not in ("sample", "optimize"):
         raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
                          "'optimize'")
-    if basis != "gaussian":
-        raise NotImplementedError(f"basis={basis!r} {_ITEM_10}")
     if monitor_thin:
         raise NotImplementedError(f"monitor_thin {_ITEM_10}")
     dists = _normalize_distributions(distributions)
@@ -542,16 +570,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
             raise NotImplementedError(f"init_from_ridge {_ITEM_11}")
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
-    phases = {}
-    clock = [time.perf_counter()]
-
-    def mark(name):
-        if timing:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            phases[name] = now - clock[0]
-            clock[0] = now
+    mark, phases = _phase_clock(timing, dev)
 
     Z_batch = np.asarray(Z_batch)
     order = np.argsort(np.asarray(frequencies, float))[::-1]
@@ -560,7 +579,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     b = Z_batch.shape[0]
     setup_kw = dict(basis_freq=basis_freq, epsilon=epsilon, nonneg=nonneg,
                     sigma_min=sigma_min, distributions=distributions,
-                    outliers=outliers)
+                    outliers=outliers, basis=basis)
     if mode == "optimize":
         return _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dt,
                         dev, random_seed, init_from_ridge, ridge_kw,
@@ -578,11 +597,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
             raise NotImplementedError(f"{name}= is not ported yet (ROADMAP "
                                       "Queue 1 item 12)")
     flat = (n_dists == 1 and not single_parallel and not outliers)
-    if sampler == "shmc" and not flat:
-        raise NotImplementedError(
-            "sampler='shmc' beyond the single series DRT needs the generic "
-            f"sample_shmc, which {_ITEM_10}")
-    if init_from_ridge and sampler == "shmc":
+    if init_from_ridge and sampler == "shmc" and flat:
         raise ValueError("init_from_ridge does not support the flat-chain "
                          "SHMC sampler; use sampler='nuts'")
     # the escalation's refit, resolved up front so that a refit the port
@@ -616,28 +631,22 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     z_scales, targets = _scaled_targets(Z_batch, b_real, z_scale, dt, dev,
                                         dists_norm)
 
-    k0 = len(tau)
-    mon_idx = np.unique(np.linspace(0, k0 - 1, 8).astype(int))
-    phi_mon = torch.as_tensor(_gaussian_rbf_np(
-        np.log(tau[mon_idx][:, None] / tau[None, :]), eps), device=dev).to(dt)
-    if gamma_eval_tau is not None:
-        ge_tau = np.asarray(gamma_eval_tau, float)
-        phi_eval = torch.as_tensor(_gaussian_rbf_np(
-            np.log(ge_tau[:, None] / tau[None, :]), eps), device=dev).to(dt)
-    else:
-        phi_eval = torch.zeros((0, k0), dtype=dt, device=dev)
-
+    phi_mon, phi_eval = _phi_mats(tau, eps, gamma_eval_tau, dt, dev)
     D = flat_dim(cfg, data.freq.shape[0])
     gen = torch.Generator(device=dev).manual_seed(int(random_seed))
     tgt_rows = targets.repeat_interleave(chains, dim=0).contiguous()
+    flat_args = None
     if flat:
         spec = flat_spec_for(cfg, data)
         shared = flat_shared_for(cfg, data, dt)
+        flat_args = (spec, shared, tgt_rows)
 
         def vg(q):
             return flat_value_and_grad(spec, shared.A, shared.L, shared.vecs,
                                        shared.scal, q, tgt_rows)
     else:
+        if sampler == "shmc" and (sh_cfg.pallas_traj or sh_cfg.flat_chain):
+            flat_spec_for(cfg, data)       # raises: not the flat family
         vg = posterior_value_and_grad(cfg, data, tgt_rows)
     mark("setup")
     init_values = None
@@ -651,61 +660,25 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                                        batch_shape=(b, chains),
                                        init_values=init_values))
     q0 = q0.reshape(b * chains, D).contiguous()
-
-    if sampler == "shmc":
-        time_traj = timing and dev.type == "cuda"
-        draws, info = sample_shmc_flat(spec, shared, tgt_rows, q0, warmup,
-                                       samples, sh_cfg, chains, generator=gen,
-                                       time_traj=time_traj)
-        info["inv_mass"] = info["inv_mass"][:, None, :].expand(-1, chains, -1)
-    else:
-        draws, raw = sample_nuts(vg, q0, warmup, samples, nuts_cfg,
-                                 generator=gen, time_draws=timing)
-        draws = _per_spectrum(draws, b, chains)
-        info = {k: _per_spectrum(raw[k], b, chains)
-                for k in ("logp", "accept_prob", "diverging", "n_leapfrog",
-                          "energy", "warmup_diverging")}
-        info["step_size"] = raw["step_size"].reshape(b, chains)
-        info["inv_mass"] = raw["inv_mass"].reshape(b, chains, D)
-        if timing:
-            info["draw_s"] = raw["draw_s"]
+    draws, info = _run_sampler(sampler, vg, q0, chains, warmup, samples,
+                               sh_cfg if sampler == "shmc" else nuts_cfg,
+                               gen, timing, flat_args)
     mark("sample")
-
-    summarize = _make_summarize(cfg, chains, samples)
-    blocks = []
-    for i in range(0, b_real, _SUMMARY_BLOCK):
-        sl = slice(i, min(i + _SUMMARY_BLOCK, b_real))
-        inf_b = {k: v[sl] for k, v in info.items()
-                 if k not in ("traj_ms", "draw_s")}
-        blocks.append(summarize(data, draws[sl], inf_b, phi_mon, phi_eval))
-    out = {k: torch.cat([blk[k] for blk in blocks]).cpu().numpy()
-           for k in blocks[0]}
+    out = _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
+                            phi_mon, phi_eval)
     mark("summary")
-    z_scales = z_scales[:b_real]
-    diagnostics = _rescaled_diagnostics(cfg, out, z_scales, dists_norm)
-    for k_ge in ("gamma_eval_mean", "gamma_eval_lo", "gamma_eval_hi"):
-        if k_ge in diagnostics:
-            diagnostics[k_ge] = diagnostics[k_ge] * _coef_scale(
-                cfg, 0, z_scales)
-    for k_z in ("z_hat_mean", "z_hat_std"):
-        if k_z in diagnostics:
-            diagnostics[k_z] = diagnostics[k_z] * z_scales[:, None]
+    result = _sampled_result(cfg, out, z_scales[:b_real], dists_norm, tau,
+                             eps, basis)
+    diagnostics = result.diagnostics
     if "z_hat_mean" in diagnostics:
         # the training grid (descending), where predict_Z_batch serves the
         # draws' mean prediction
         diagnostics["f_train"] = np.asarray(frequencies, float)
     if timing:
-        for k in ("traj_ms", "draw_s"):
+        for k in _TIMING_KEYS:
             if k in info:
                 diagnostics[k] = np.asarray(info[k])
         diagnostics["phase_s"] = phases
-    scale0 = _coef_scale(cfg, 0, z_scales)
-    result = BatchFitResult(
-        coef=out["coef"] * scale0, r_inf=out["r_inf"] * z_scales,
-        inductance=out["induc"] * z_scales,
-        gamma_lo=out["coef_lo"] * scale0, gamma_hi=out["coef_hi"] * scale0,
-        z_scales=z_scales, tau=tau, epsilon=eps, diagnostics=diagnostics,
-        basis=basis)
 
     # ---- gate-triggered escalation: refit the under-mixed tail ----
     if escalate:
@@ -745,6 +718,94 @@ def _coef_scale(cfg, i, z_scales):
     if cfg.dists[i].dist_type == "parallel":
         return 1.0 / z_scales[:, None]
     return z_scales[:, None]
+
+
+# per-draw timing records of the samplers, kept out of the summary
+_TIMING_KEYS = ("traj_ms", "draw_s", "capture_s")
+
+
+def _phi_mats(tau, eps, gamma_eval_tau, dtype, device):
+    """The first distribution's basis at the 8 monitor points of the
+    summary's ESS (phi_mon) and at ``gamma_eval_tau`` (phi_eval, empty
+    without it)."""
+    k0 = len(tau)
+    mon_idx = np.unique(np.linspace(0, k0 - 1, 8).astype(int))
+    phi_mon = torch.as_tensor(_gaussian_rbf_np(
+        np.log(tau[mon_idx][:, None] / tau[None, :]), eps), device=device)
+    if gamma_eval_tau is not None:
+        ge_tau = np.asarray(gamma_eval_tau, float)
+        phi_eval = torch.as_tensor(_gaussian_rbf_np(
+            np.log(ge_tau[:, None] / tau[None, :]), eps), device=device)
+    else:
+        phi_eval = torch.zeros((0, k0), dtype=torch.float64, device=device)
+    return phi_mon.to(dtype), phi_eval.to(dtype)
+
+
+def _run_sampler(sampler, vg, q0, chains, warmup, samples, cfg, gen,
+                 timing, flat_args=None):
+    """Sample the (b*chains, D) rows q0: NUTS (``cfg`` a NUTSConfig), the
+    flat-chain SHMC sampler (``flat_args`` = (spec, shared, targets)) or
+    the generic SHMC sampler on ``vg``. Returns draws (b, C, S, D) and the
+    info dict with a leading b axis, the SHMC samplers' per-spectrum
+    metric broadcast to every chain."""
+    b = q0.shape[0] // chains
+    if sampler == "shmc":
+        if flat_args is not None:
+            spec, shared, tgt_rows = flat_args
+            draws, info = sample_shmc_flat(
+                spec, shared, tgt_rows, q0, warmup, samples, cfg, chains,
+                generator=gen, time_traj=timing and q0.device.type == "cuda")
+        else:
+            draws, info = sample_shmc(vg, q0, warmup, samples, cfg, chains,
+                                      generator=gen, time_draws=timing)
+        info["inv_mass"] = info["inv_mass"][:, None, :].expand(-1, chains, -1)
+        return draws, info
+    draws, raw = sample_nuts(vg, q0, warmup, samples, cfg, generator=gen,
+                             time_draws=timing)
+    info = {k: _per_spectrum(raw[k], b, chains)
+            for k in ("logp", "accept_prob", "diverging", "n_leapfrog",
+                      "energy", "warmup_diverging")}
+    info["step_size"] = raw["step_size"].reshape(b, chains)
+    info["inv_mass"] = raw["inv_mass"].reshape(b, chains, -1)
+    if timing:
+        info["draw_s"] = raw["draw_s"]
+    return _per_spectrum(draws, b, chains), info
+
+
+def _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
+                      phi_mon, phi_eval):
+    """The posterior summary of the first ``b_real`` spectra, in blocks of
+    _SUMMARY_BLOCK spectra (per-spectrum data sliced with the draws), as
+    numpy arrays."""
+    summarize = _make_summarize(cfg, chains, samples)
+    blocks = []
+    for i in range(0, b_real, _SUMMARY_BLOCK):
+        sl = slice(i, min(i + _SUMMARY_BLOCK, b_real))
+        inf_b = {k: v[sl] for k, v in info.items() if k not in _TIMING_KEYS}
+        blocks.append(summarize(group_data(data, sl), draws[sl], inf_b,
+                                phi_mon, phi_eval))
+    return {k: torch.cat([blk[k] for blk in blocks]).cpu().numpy()
+            for k in blocks[0]}
+
+
+def _sampled_result(cfg, out, z_scales, dists_norm, tau, eps, basis):
+    """BatchFitResult of a sample-mode summary: coefficients, bands, gamma
+    bands and the posterior-predictive impedance back in physical
+    units."""
+    diagnostics = _rescaled_diagnostics(cfg, out, z_scales, dists_norm)
+    scale0 = _coef_scale(cfg, 0, z_scales)
+    for k_ge in ("gamma_eval_mean", "gamma_eval_lo", "gamma_eval_hi"):
+        if k_ge in diagnostics:
+            diagnostics[k_ge] = diagnostics[k_ge] * scale0
+    for k_z in ("z_hat_mean", "z_hat_std"):
+        if k_z in diagnostics:
+            diagnostics[k_z] = diagnostics[k_z] * z_scales[:, None]
+    return BatchFitResult(
+        coef=out["coef"] * scale0, r_inf=out["r_inf"] * z_scales,
+        inductance=out["induc"] * z_scales,
+        gamma_lo=out["coef_lo"] * scale0, gamma_hi=out["coef_hi"] * scale0,
+        z_scales=z_scales, tau=tau, epsilon=eps, diagnostics=diagnostics,
+        basis=basis)
 
 
 def _rescaled_diagnostics(cfg, out, z_scales, dists_norm):
@@ -819,8 +880,22 @@ def _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dtype, device,
         pol = newton_polish(obj.value_and_grad, obj.hessian, res.params)
         res = pol._replace(n_iter=res.n_iter + pol.n_iter)
         mark("polish")
+    result = _map_result(cfg, data, res, z_scales[:b_real], dists_norm,
+                         tau, eps, setup_kw["basis"])
+    if phases is not None:
+        result.diagnostics["phase_s"] = phases
+        result.diagnostics["n_iter_lbfgs"] = n_lbfgs[:b_real].cpu().numpy(
+        ).astype(np.float32)
+    return result
+
+
+def _map_result(cfg, data, res, z_scales, dists_norm, tau, eps, basis):
+    """BatchFitResult of a MAP fit's optimum rows (the first len(z_scales)
+    of ``res``): the constrained coefficients in physical units and each
+    spectrum's objective, iteration count, gradient norm and certificate;
+    no bands."""
+    b_real = len(z_scales)
     c = constrain(cfg, data, unravel(cfg, res.params[:b_real]))
-    z_scales = z_scales[:b_real]
 
     def host(t):
         return t[:b_real].cpu().numpy()
@@ -831,16 +906,209 @@ def _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dtype, device,
            "converged": host(res.converged)}
     for i in range(1, len(cfg.dists)):
         out[f"coef_{i}"] = c[f"x_{i}"].cpu().numpy()
-    diagnostics = _rescaled_diagnostics(cfg, out, z_scales, dists_norm)
-    if phases is not None:
-        diagnostics["phase_s"] = phases
-        diagnostics["n_iter_lbfgs"] = host(n_lbfgs).astype(np.float32)
     return BatchFitResult(
         coef=c["x_0"].cpu().numpy() * _coef_scale(cfg, 0, z_scales),
         r_inf=c["Rinf"].cpu().numpy() * z_scales,
         inductance=c["induc"].cpu().numpy() * z_scales, gamma_lo=None,
         gamma_hi=None, z_scales=z_scales, tau=tau, epsilon=eps,
-        diagnostics=diagnostics)
+        diagnostics=_rescaled_diagnostics(cfg, out, z_scales, dists_norm),
+        basis=basis)
+
+
+def _ragged_setup(spectra, mode, basis_freq, epsilon, nonneg, outliers,
+                  distributions, basis, sigma_min, ncp, dt, dev):
+    """fit_spectra_ragged's batch on the device: the batch padded to a
+    power of two (>= 8) with the first spectrum, each grid sorted
+    descending and padded to a common multiple of 16 with its last
+    frequency (masked out of the likelihood), the default basis, each
+    spectrum's MAP-rule Z scale, and the posterior with per-spectrum A
+    (b, 2 n_max, K), freq (b, n_max) and lik_mask (b, 2 n_max) over the
+    distributions' shared bases and L. Returns (cfg, data, scaled targets
+    (b, 2 n_max), z_scales (b,), the normalized distributions, (tau,
+    epsilon, basis) of the first distribution)."""
+    b_real = len(spectra)
+    freqs = [np.sort(np.asarray(f, float))[::-1] for f, _ in spectra]
+    zs = [np.asarray(z)[np.argsort(np.asarray(f, float))[::-1]]
+          for f, z in spectra]
+    b = max(8, 1 << (b_real - 1).bit_length())
+    freqs += [freqs[0]] * (b - b_real)
+    zs += [zs[0]] * (b - b_real)
+    n_max = int(-(-max(len(f) for f in freqs) // 16) * 16)
+    dists_norm = _normalize_distributions(distributions)
+    f_hi = max(f.max() for f in freqs)
+    f_lo = min(f.min() for f in freqs)
+    if basis_freq is None:
+        tmin = np.log10(1 / (2 * np.pi * f_hi)) - 1
+        tmax = np.log10(1 / (2 * np.pi * f_lo)) + 1
+        default_tau = np.logspace(tmin, tmax, int(10 * (tmax - tmin) + 1))
+    else:
+        default_tau = 1.0 / (2 * np.pi * np.asarray(basis_freq, float))
+    freq_pad = np.stack([np.concatenate([f, np.full(n_max - len(f), f[-1])])
+                         for f in freqs])
+    mask = np.stack([np.concatenate([np.ones(len(f)),
+                                     np.zeros(n_max - len(f))])
+                     for f in freqs])
+    z_scales = np.array([float(z_scale_for(dists_norm, z, fit_type="map"))
+                         for z in zs])
+    z_pad = np.stack([np.concatenate([z / s_, np.zeros(n_max - len(z))])
+                      for z, s_ in zip(zs, z_scales)])
+
+    stacks, dist_mats, first = [], {}, None
+    for nm in sort_distributions(dists_norm):
+        info = dists_norm[nm]
+        bf = info.get("basis_freq", None)
+        tau_d = (default_tau if bf is None
+                 else 1.0 / (2 * np.pi * np.asarray(bf, float)))
+        eps_d = info.get("epsilon", epsilon)
+        eps_d = default_epsilon(tau_d) if eps_d is None else float(eps_d)
+        basis_d = info.get("basis", basis)
+        kw = dict(tau=tau_d, epsilon=eps_d, basis=basis_d,
+                  dtype=torch.float64, device=dev)
+        akw = dict(kernel=info.get("kernel", "DRT"),
+                   dist_type=info["dist_type"],
+                   symmetry=info.get("symmetry", "planar"),
+                   bc=info.get("bc", "transmissive"),
+                   ct=info.get("ct", False), k_ct=info.get("k_ct", None))
+        # every spectrum's padded grid as one (b * n_max)-row grid
+        a_re, a_im = (construct_A(freq_pad.reshape(-1), part, **kw, **akw)
+                      .reshape(b, n_max, -1) for part in ("real", "imag"))
+        stacks.append(torch.cat([a_re, a_im], dim=1))
+        mats = {"A_re": a_re[0], "A_im": a_im[0]}
+        f_coll = 1.0 / (2 * np.pi * tau_d)
+        for o in (0, 1, 2):
+            mats[f"L{o}"] = construct_L(f_coll, order=o, **kw)
+        dist_mats[nm] = mats
+        info["_tau"], info["_epsilon"] = tau_d, eps_d
+        if first is None:
+            first = (tau_d, eps_d, basis_d)
+    cfg, data0 = build_posterior(
+        dists_norm, dist_mats, freq_pad[0], z_pad[0], mode=mode,
+        nonneg=nonneg, dtype=dt, ncp=ncp and mode == "sample",
+        outliers=outliers, sigma_min=sigma_min, device=dev)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev).to(dt)
+
+    targets = t(np.concatenate([z_pad.real, z_pad.imag], axis=1))
+    data = data0._replace(A=tuple(a.to(dt) for a in stacks),
+                          freq=t(freq_pad), lik_mask=t(np.concatenate(
+                              [mask, mask], axis=1)))
+    return cfg, data, targets, z_scales, dists_norm, first
+
+
+def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
+                       epsilon=None, nonneg: bool = False,
+                       outliers: bool = False, chains: int = 4,
+                       warmup: int = 500, samples: int = 500,
+                       max_iter: int = 2000, n_restarts: int = 2,
+                       random_seed: int = 0, mesh=None,
+                       max_tree_depth: int = 10, dtype=None,
+                       distributions=None, ncp: bool = False,
+                       unroll: int = 1, flat_tree: bool = False,
+                       tree_scan: bool = False, scan_unroll: int = 1,
+                       basis: str = "gaussian", gamma_eval_tau=None,
+                       sigma_min: float = 0.002, sampler: str = "nuts",
+                       chees_cfg=None, shmc_cfg=None, warm_start=None,
+                       timing: bool = False, device=None) -> BatchFitResult:
+    """Fit spectra measured on different frequency grids in one batch.
+
+    ``spectra``: a list of (frequencies, Z) pairs. The batch is padded to a
+    power of two (>= 8) by repeating the first spectrum; every grid is
+    sorted descending and padded to a common multiple of 16 with its last
+    frequency, the padding masked out of the likelihood. Every spectrum
+    gets its own A matrices over shared per-distribution bases (a DRT's A
+    for all spectra in one quadrature kernel launch per part) and the
+    shared L matrices; ``basis_freq`` defaults to 10 ppd over the union of
+    the measured ranges plus one decade each side. Each spectrum's Z scale
+    is the MAP rule (``z_scale_for(fit_type='map')``) in both modes, as in
+    the JAX package.
+
+    ``mode='sample'``: NUTS (``sampler='nuts'``, per-chain step size and
+    metric) or the generic SHMC sampler (``sampler='shmc'``,
+    ``shmc_cfg``; one metric and pooled step size per spectrum) over the
+    (B*chains, D) rows, then the summary of ``fit_spectra_batch``
+    (``gamma_eval_tau`` bands, ESS, Rhat, the posterior-predictive
+    impedance on each padded grid; no ``f_train``, so ``predict_Z_batch``
+    recomputes). ``mode='optimize'``: L-BFGS from ``n_restarts`` random
+    starts per spectrum, capped at ``max_iter``, no polish and no ridge
+    seed, each spectrum keeping its best finite optimum; ``gamma_lo`` and
+    ``gamma_hi`` are None. The other arguments are ``fit_spectra_batch``'s.
+    ``sampler='chees'``, ``warm_start`` and ``mesh`` raise (ROADMAP item
+    12)."""
+    if mode not in ("sample", "optimize"):
+        raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
+                         "'optimize'")
+    for name, val in (("mesh", mesh), ("warm_start", warm_start)):
+        if val is not None:
+            raise NotImplementedError(f"{name}= is not ported yet (ROADMAP "
+                                      "Queue 1 item 12)")
+    if mode == "sample":
+        if sampler == "chees":
+            raise NotImplementedError("sampler='chees' is not ported yet "
+                                      "(ROADMAP Queue 1 item 12)")
+        if sampler not in ("nuts", "shmc"):
+            raise ValueError(f"Unknown sampler {sampler!r}; options are "
+                             "'nuts', 'chees', 'shmc'")
+        if sampler == "shmc":
+            run_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
+        else:
+            run_cfg = NUTSConfig(max_depth=max_tree_depth, unroll=unroll,
+                                 flat_tree=flat_tree, tree_scan=tree_scan,
+                                 scan_unroll=scan_unroll)
+        run_cfg.validate()
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    mark, phases = _phase_clock(timing, dev)
+
+    b_real = len(spectra)
+    cfg, data, targets, z_scales, dists_norm, (tau, eps, first_basis) = \
+        _ragged_setup(spectra, mode, basis_freq, epsilon, nonneg, outliers,
+                      distributions, basis, sigma_min, ncp, dt, dev)
+    b, n_max = data.freq.shape
+    D = flat_dim(cfg, n_max)
+    gen = torch.Generator(device=dev).manual_seed(int(random_seed))
+    mark("setup")
+    z_scales = z_scales[:b_real]
+
+    if mode == "optimize":
+        vg = posterior_value_and_grad(
+            cfg, data, targets.repeat_interleave(n_restarts, dim=0),
+            jacobian=False)
+
+        def loss(q):
+            lp, g = vg(q)
+            return -lp, -g
+
+        q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
+                                           batch_shape=(b, n_restarts)))
+        res = run_lbfgs_restarts(loss, q0, max_iter=max_iter)
+        mark("lbfgs")
+        result = _map_result(cfg, data, res, z_scales, dists_norm, tau, eps,
+                             first_basis)
+    else:
+        phi_mon, phi_eval = _phi_mats(tau, eps, gamma_eval_tau, dt, dev)
+        vg = posterior_value_and_grad(
+            cfg, data, targets.repeat_interleave(chains, dim=0))
+        q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
+                                           batch_shape=(b, chains)))
+        draws, info = _run_sampler(sampler, vg,
+                                   q0.reshape(b * chains, D).contiguous(),
+                                   chains, warmup, samples, run_cfg, gen,
+                                   timing)
+        mark("sample")
+        out = _summarize_blocks(cfg, data, draws, info, chains, samples,
+                                b_real, phi_mon, phi_eval)
+        mark("summary")
+        result = _sampled_result(cfg, out, z_scales, dists_norm, tau, eps,
+                                 first_basis)
+        result.diagnostics["state_cfg"] = cfg
+        if timing:
+            for k in _TIMING_KEYS:
+                if k in info:
+                    result.diagnostics[k] = np.asarray(info[k])
+    if timing:
+        result.diagnostics["phase_s"] = phases
+    return result
 
 
 # ---- escalation gate and splice (copied from the JAX package's

@@ -164,3 +164,23 @@ def make_benchmark_batch(n_spectra, freq=None, circuit="ZARC",
         freq = np.logspace(6, -2, 81)
     Z = reference_circuit(circuit, freq)
     return freq, noisy_replicas(Z, n_spectra, noise_level, seed)
+
+
+def make_ragged_fleet(n_spectra, seed=0):
+    """ZARC spectra measured on different grids, the recipe of the JAX
+    package's ragged benchmark: per spectrum ppd in {8, 10, 12}, the span
+    10^6..10^-2 Hz shortened by up to a decade at each end, complex noise
+    at 0.25% of |Z|. Returns a list of (freq, Z) pairs."""
+    rng = np.random.default_rng(seed)
+    spectra = []
+    for _ in range(n_spectra):
+        ppd = rng.choice([8, 10, 12])
+        lo = -2 + rng.uniform(0, 1.0)
+        hi = 6 - rng.uniform(0, 1.0)
+        n = int((hi - lo) * ppd) + 1
+        freq = np.logspace(hi, lo, n)
+        Z = reference_circuit("ZARC", freq)
+        sigma = 0.0025 * np.abs(Z)
+        Z = Z + sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        spectra.append((freq, Z))
+    return spectra

@@ -29,7 +29,7 @@ line is printed):
      the NUTS draws and the call.
   7. the default call, fit_spectra_batch(freq, Z) with no sampler
      arguments (NUTS max_depth 10, escalation on) on the main path's 1024
-     spectra at a budget cut to 4 x (60 + 20): shape, values, mask,
+     spectra at a budget cut to 4 x (30 + 10): shape, values, mask,
      launches, and the seconds of the call, of a warmup draw and of a
      draw after warmup.
   8. NUTS draw times from the main path's final states at R=256 and
@@ -60,10 +60,25 @@ line is printed):
      outliers on spectra with three corrupted frequencies); the polish's
      Hessian and solve at D=336; float64 card-vs-CPU parity of the DDT A
      matrices, the autograd value and gradient and one NUTS transition.
-  12. one JSON line listing both kernels with their launches (phases 4,
-     6, 7, 10 and 11) and times; K2's bound counts the function's least
-     fp64 work a node, and the count its compiled loop issues (cuobjdump
-     -sass) is printed beside it.
+  12. the generic SHMC sampler and fit_spectra_ragged: (a)
+     fit_spectra_batch(sampler="shmc", ncp, recompute_grad) on phase 11's
+     256 Series-Parallel spectra at 4 x (150 + 250), each draw's autograd
+     trajectory one CUDA graph replay, with phase 11's gates but the
+     divergence bar (1.5x the JAX package's own SHMC figure); (b) float64
+     parity of the generic trajectory: a Series-Parallel trajectory
+     replayed as a graph on the card (bit for bit its eager form) against
+     the CPU, and the trajectory kernel against the generic trajectory on
+     its hand-written gradient at the main path's final states; (c)
+     fit_spectra_ragged on the ragged bench's fleet (512 ZARC spectra on
+     different grids, n 57 to 97, padded to 112, K=101): generic SHMC at
+     the bench's configuration and 4 x (150 + 250), and MAP in the default
+     form (2 restarts, cap 2000, no polish), gated on RMSE and p90; (d)
+     float64 card-vs-CPU parity of the ragged density and gradient and of
+     the ragged DRT A, and K2's time at the fleet's ragged launch.
+  13. one JSON line listing both kernels with their launches (phases 4,
+     6, 7, 10, 11 and 12) and times; K2's bound counts the function's
+     least fp64 work a node, and the count its compiled loop issues
+     (cuobjdump -sass) is printed beside it.
 The last line of stdout is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --check-only   # phases 1-3, then stop
@@ -95,10 +110,11 @@ ESC_WARMUP = WARMUP
 ESC_SAMPLES = SAMPLES
 NUTS_DEPTH = 8            # the refit's max_tree_depth
 # the default call's phase: the main path's B, and a budget cut from the
-# default 4 x (500 + 500) to keep the smoke's time
+# default 4 x (500 + 500) to keep the smoke's time (4 x (60 + 20) until
+# the generic SHMC and ragged phase came)
 B_DEFAULT = B
-DEFAULT_WARMUP = 60
-DEFAULT_SAMPLES = 20
+DEFAULT_WARMUP = 30
+DEFAULT_SAMPLES = 10
 
 # the MAP phase: the default form's caps and restarts, the production
 # form's cap, its gates (of Rp; p90 is the JAX MAP tests' per-spectrum
@@ -136,6 +152,20 @@ SP_GATE_DIV = 0.05        # median divergence rate
 # scripts/jax_series_parallel_reference.py), and the bar, 1.5x of it
 SP_JAX_DRT_RMSE = 0.022847870434669106
 SP_GATE_DRT_RMSE = 1.5 * SP_JAX_DRT_RMSE
+# the generic SHMC fit's divergence bar: SHMC at eps_quantile 0.5 samples
+# half the chains above their own adapted step size, and the legs that
+# diverge are never selected (the JAX package documents ~12% for its
+# 'fast' preset, docs/PERFORMANCE.md:227-230), so phase 11's NUTS bar
+# (0.05) does not apply; the bar is 1.5x the JAX package's own median on
+# the first 16 of these spectra at the same configuration and budget
+# (float64 on the CPU, scripts/jax_series_parallel_reference.py 16 shmc)
+SP_JAX_SHMC_DIV = 0.14149999618530273
+SP_GATE_SHMC_DIV = 1.5 * SP_JAX_SHMC_DIV
+# the ragged phase: the fleet of the JAX package's ragged bench
+# (benchmarks/bench_ragged.py:26-42, made by sim.make_ragged_fleet) at its
+# B and seed
+RG_B = 512
+RG_SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -1515,6 +1545,405 @@ def sp_parity(card, freq, dists, zb, sampled):
         raise AssertionError(f"series-parallel parity failed: {failed}")
 
 
+def phase_generic(card, state):
+    """The generic SHMC sampler and fit_spectra_ragged: (1) generic SHMC on
+    phase 11's Series-Parallel posterior at B=SP_B_SAMPLE; (2) float64
+    parity of the generic trajectory (card graph replay against CPU eager
+    on that posterior; the flat-chain kernel against the generic
+    trajectory on its hand-written gradient); (3) fit_spectra_ragged on
+    the ragged fleet in sample and MAP mode; (4) float64 card-vs-CPU
+    parity of the ragged density and of the ragged DRT A. Returns the K2
+    launches of (1) and (3)."""
+    import torch
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    freq, dists, z_true, zb, tau, truth = sp_setup()
+    failed = []
+    launches = {"quad": 0, "traj": 0}
+
+    def counted(fn, *args):
+        drt_quad.launches = 0
+        traj_fused.launches = 0
+        out = fn(*args)
+        launches["quad"] += drt_quad.launches
+        launches["traj"] += traj_fused.launches
+        return out
+
+    sampled = counted(generic_sp_fit, card, freq, dists, z_true, zb, tau,
+                      truth, failed)
+    generic_traj_parity(card, freq, dists, zb, sampled, state, failed)
+    counted(ragged_fits, card, failed)
+    # K2: the Series-Parallel setup (the DRT's A, real and imaginary) and
+    # one launch a part for each ragged fit
+    want = {"quad": 2 + 2 + 2, "traj": 0}
+    print(f"generic/ragged launches {launches} (expected {want}) [{card}]")
+    if launches != want:
+        failed.append("launches")
+    ragged_parity(card, failed)
+    if failed:
+        raise AssertionError(f"generic SHMC / ragged phase failed: {failed}")
+    return launches
+
+
+def generic_sp_fit(card, freq, dists, z_true, zb, tau, truth, failed):
+    """fit_spectra_batch(sampler='shmc') on the Series-Parallel posterior
+    (the generic sampler: autograd, each draw's trajectory one CUDA graph
+    replay) at B=SP_B_SAMPLE and the 'fast' preset's budget, with phase
+    11's gates but SHMC's own divergence bar (SP_GATE_SHMC_DIV)."""
+    import torch
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.parallel import batch
+    cfg = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS,
+                     recompute_grad=True, eps_quantile=EPS_QUANTILE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = batch.fit_spectra_batch(
+        freq, zb[:SP_B_SAMPLE], distributions=dists, nonneg=True,
+        sigma_min=0.002, chains=CHAINS, warmup=WARMUP, samples=SAMPLES,
+        ncp=True, sampler="shmc", shmc_cfg=cfg, escalate=False,
+        gamma_eval_tau=tau, random_seed=3, timing=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    d = res.diagnostics
+    fig = sp_figures(res, freq, z_true, tau, truth)
+    div = float(np.median(d["divergence_rate"]))
+    cov = float(np.mean((truth["drt"][None, :] >= d["gamma_eval_lo"])
+                        & (truth["drt"][None, :] <= d["gamma_eval_hi"])))
+    draw_s = np.asarray(d["draw_s"])
+    flagged = int(batch.escalation_mask(
+        d, SP_B_SAMPLE, n_draws=CHAINS * SAMPLES).sum())
+    gates = {"finite": fig["finite"],
+             "z_resid": fig["z_resid_median"] <= SP_GATE_Z,
+             "divergence": div <= SP_GATE_SHMC_DIV,
+             "drt_rmse": fig["drt_rmse"] <= SP_GATE_DRT_RMSE}
+    rec = dict(B=SP_B_SAMPLE, budget=[CHAINS, WARMUP, SAMPLES],
+               n_steps=N_STEPS, recompute_grad=True, wall_s=wall,
+               phase_s=d["phase_s"], **fig, divergence_rate_median=div,
+               drt_band_coverage=cov,
+               min_ess_median=float(np.median(d["min_ess"])),
+               min_ess_p10=float(np.percentile(d["min_ess"], 10)),
+               logp_rhat_median=float(np.median(d["logp_rhat"])),
+               capture_s=[float(x) for x in d["capture_s"]],
+               draw_s_median=float(np.median(draw_s)),
+               draw_s_warmup_median=float(np.median(draw_s[1:WARMUP])),
+               fit_peak_gib=peak, escalation_flags=flagged,
+               gates={k: bool(v) for k, v in gates.items()},
+               drt_rmse_bar=SP_GATE_DRT_RMSE,
+               divergence_bar=SP_GATE_SHMC_DIV,
+               divergence_under_nuts_bar=div < SP_GATE_DIV)
+    print("generic shmc series-parallel: " + json.dumps(rec) + f" [{card}]")
+    failed += [f"generic_sp.{k}" for k, v in gates.items() if not v]
+    return res
+
+
+def traj_rows_parity(card, label, got, want, vg_cpu, R):
+    """Rows where a card trajectory and the CPU's agree: the same
+    divergence flag, q within 1e-9 of the row's largest entry, logp and
+    grad within 1e-9 of the CPU's evaluation at the card's selected point
+    (phase 9's criterion). Prints the figures; returns the count that
+    differ."""
+    import torch
+    c = [t.cpu() for t in got]
+    h = [t.cpu() for t in want]
+
+    def rel_rows(a, b):
+        a, b = a.reshape(R, -1), b.reshape(R, -1)
+        scale = torch.clamp(b.abs().max(dim=1).values, min=1.0)
+        return (a - b).abs().max(dim=1).values / scale
+
+    lp_at, g_at = vg_cpu(c[0])
+    rel = {"q": rel_rows(c[0], h[0]), "logp": rel_rows(c[1], lp_at),
+           "grad": rel_rows(c[2], g_at)}
+    same = c[5] == h[5]
+    for v in rel.values():
+        same &= v <= 1e-9
+    print(f"{label}: largest relative error over rows (q; logp, grad at "
+          "the card's point): "
+          + ", ".join(f"{k} {float(v.max()):.2e}" for k, v in rel.items())
+          + f"; {int(same.sum())}/{R} rows agree ({int(c[5].sum())} "
+          f"diverged on the card) [{card}]")
+    return int((~same).sum())
+
+
+def generic_traj_parity(card, freq, dists, zb, sampled, state, failed):
+    """float64: (a) one Series-Parallel trajectory (n_leap = N_STEPS,
+    recompute_grad) at R = SP_B_SAMPLE x CHAINS from the generic fit's
+    final states with numpy-made p0, u_sel and split, replayed as a CUDA
+    graph on the card (bit for bit the eager form there) against eager on
+    the CPU, with the graph capture's memory; (b) the flat-chain kernel
+    against the generic trajectory on its hand-written gradient (as a
+    graph) at the main path's R and final states."""
+    import torch
+    from bayes_drt_tpu_torch.infer.chees import (GraphedTrajectory,
+                                                 shmc_trajectory)
+    from bayes_drt_tpu_torch.infer.shmc_flat import (flat_value_and_grad,
+                                                     traj_fused)
+    from bayes_drt_tpu_torch.models.posterior import posterior_value_and_grad
+    from bayes_drt_tpu_torch.parallel import batch
+    torch.set_num_threads(8)
+    R = SP_B_SAMPLE * CHAINS
+    d = sampled.diagnostics
+    q_np = np.asarray(d["state_q"], np.float64).reshape(R, -1)
+    m_np = np.asarray(d["state_inv_mass"], np.float64).reshape(R, -1)
+    e_np = np.asarray(d["state_step_size"], np.float64).reshape(R)
+    rng = np.random.default_rng(21)
+    p_np = rng.standard_normal(q_np.shape) / np.sqrt(m_np)
+    u_np = rng.uniform(size=(N_STEPS, R))
+    j = int(rng.integers(0, N_STEPS + 1))
+    f_desc = np.sort(freq)[::-1]
+    zd = np.ascontiguousarray(zb[:SP_B_SAMPLE, np.argsort(freq)[::-1]])
+    outs, vgs = {}, {}
+    for dev in ("cuda", "cpu"):
+        _, _, _, cfg, dat, _ = batch._build_shared(
+            f_desc, mode="sample", distributions=dists, nonneg=True,
+            ncp=True, dtype=torch.float64, device=dev)
+        _, tgt = batch._scaled_targets(zd, SP_B_SAMPLE, None, torch.float64,
+                                       dev, dists)
+        vg = posterior_value_and_grad(cfg, dat, tgt.repeat_interleave(
+            CHAINS, dim=0))
+        vgs[dev] = vg
+
+        def t(a):
+            return torch.tensor(a, device=dev)
+
+        q = t(q_np)
+        lp, g = vg(q)
+        args = (q, t(p_np), g, lp, t(e_np), t(m_np), j, t(u_np))
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tr = GraphedTrajectory(vg, N_STEPS, 1000.0, True, *args)
+            torch.cuda.synchronize()
+            cap_s = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            o = tr(*args)
+            eager = shmc_trajectory(vg, N_STEPS, 1000.0, *args,
+                                    recompute_grad=True)
+            torch.cuda.synchronize()
+            replay_ms = cuda_ms(lambda: tr(*args), 3)
+            del tr
+            if not all(torch.equal(a, b) for a, b in zip(o, eager)):
+                failed.append("generic_traj.graph_vs_eager")
+            print(f"generic traj sp: R={R}, D={q_np.shape[1]}, n_leap="
+                  f"{N_STEPS}, j={j}, float64: capture {cap_s:.2f} s, "
+                  f"graph pool peak {peak:.3f} GiB, replay {replay_ms:.2f}"
+                  f" ms; replay equals eager bit for bit: "
+                  f"{'generic_traj.graph_vs_eager' not in failed} [{card}]")
+        else:
+            o = shmc_trajectory(vg, N_STEPS, 1000.0, *args,
+                                recompute_grad=True)
+            print(f"generic traj sp: cpu eager {time.perf_counter() - t0:.1f}"
+                  " s")
+        outs[dev] = o
+    bad = traj_rows_parity(card, "generic traj sp card vs cpu", outs["cuda"],
+                           outs["cpu"], vgs["cpu"], R)
+    if bad > 0.001 * R:
+        failed.append("generic_traj.card_vs_cpu")
+
+    # (b) K1 against the generic trajectory on flat_value_and_grad
+    args = args_f64(traj_inputs(torch.float32, state=state))
+    spec, n_leap, max_e, sh, q, p0, g, lp, eps, m_inv, tgt, j, u = args
+
+    def vg_flat(x):
+        return flat_value_and_grad(spec, sh.A, sh.L, sh.vecs, sh.scal, x,
+                                   tgt)
+
+    lp, g = vg_flat(q)
+    args = (spec, n_leap, max_e, sh, q, p0, g, lp, eps, m_inv, tgt, j, u)
+    k1 = traj_fused(*args)
+    tr = GraphedTrajectory(vg_flat, n_leap, max_e, False, q, p0, g, lp, eps,
+                           m_inv, j, u)
+    gen = tr(q, p0, g, lp, eps, m_inv, j, u)
+    g_at = vg_flat(k1[0])[1]
+    torch.cuda.synchronize()
+    del tr
+    where = f"R={q.shape[0]}, D={spec.D}, j={j}"
+    try:
+        for nm, a, b in zip(["q", "logp", "kin", "sacc"],
+                            (k1[0], k1[1], k1[3], k1[4]),
+                            (gen[0], gen[1], gen[3], gen[4])):
+            check_close(f"K1 vs generic traj f64 {nm} ({where})", a, b,
+                        1e-9, 1e-9)
+        # the gradient at the kernel's own selected point: from these
+        # stiff states the two summation orders' ~1e-16 in q become ~1e-9
+        # relative in the gradient (phase 9's note)
+        g_err = check_close(f"K1 grad at its point ({where})", k1[2], g_at,
+                            1e-9, 1e-9)
+        g_gap = float((k1[2] - gen[2]).abs().max())
+        if not torch.equal(k1[5], gen[5]):
+            raise AssertionError("K1 vs generic traj: divergence flags "
+                                 "differ")
+        print(f"K1 vs generic trajectory (graph) f64 at the main path's "
+              f"final states: q, logp, kin, sacc within rtol/atol 1e-9, "
+              f"K1's grad within {g_err:.2e} of the gradient at its point "
+              f"(of the generic run's grad: {g_gap:.2e}) at {where} "
+              f"[{card}]")
+    except AssertionError as e:
+        print(str(e))
+        failed.append("generic_traj.k1")
+
+
+def ragged_fits(card, failed):
+    """fit_spectra_ragged on the ragged fleet (RG_B spectra, numpy seed
+    RG_SEED): sample mode with generic SHMC at the ragged bench's
+    configuration and budget, and MAP in the default form (2 restarts, cap
+    2000, no polish), gated on finite coefficients, ordered bands, the
+    batch-mean gamma RMSE and the per-spectrum p90 against the analytic
+    ZARC DRT."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.parallel import (evaluate_gamma,
+                                              fit_spectra_ragged)
+    fleet = sim.make_ragged_fleet(RG_B, RG_SEED)
+    lens = np.array([len(f) for f, _ in fleet])
+    # the fit's default basis (10 ppd over the union, a decade each side)
+    f_all = np.concatenate([f for f, _ in fleet])
+    tmin = np.log10(1 / (2 * np.pi * f_all.max())) - 1
+    tmax = np.log10(1 / (2 * np.pi * f_all.min())) + 1
+    tau = np.logspace(tmin, tmax, int(10 * (tmax - tmin) + 1))
+    gt = sim.reference_gamma("ZARC", tau)
+    rp = np.trapezoid(gt, np.log(tau))
+    print(f"ragged fleet: B={RG_B}, n in [{lens.min()}, {lens.max()}] (mean "
+          f"{lens.mean():.1f}), K={len(tau)}")
+    cfg = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS, leaf_unroll=2,
+                     draw_unroll=2, recompute_grad=True,
+                     eps_quantile=EPS_QUANTILE)
+    for name, kw in (("sample", dict(mode="sample", chains=CHAINS,
+                                     warmup=WARMUP, samples=SAMPLES,
+                                     ncp=True, sampler="shmc",
+                                     shmc_cfg=cfg, gamma_eval_tau=tau)),
+                     ("map", dict(mode="optimize"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_spectra_ragged(fleet, random_seed=1, timing=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = res.diagnostics
+        g = evaluate_gamma(res, tau)
+        per = np.sqrt(np.mean((g - gt[None, :]) ** 2, axis=1))
+        rmse = float(np.sqrt(np.mean((g.mean(axis=0) - gt) ** 2))) / rp
+        p90 = float(np.percentile(per, 90)) / rp
+        finite = bool(np.isfinite(res.coef).all())
+        rec = dict(B=RG_B, wall_s=wall, spectra_per_min=RG_B / (wall / 60),
+                   phase_s=d["phase_s"], rmse_over_rp=rmse, p90_over_rp=p90,
+                   K=len(res.tau), n_max=int(d["z_hat_mean"].shape[1] // 2)
+                   if "z_hat_mean" in d else None)
+        if name == "sample":
+            ordered = bool((res.gamma_lo <= res.gamma_hi).all()
+                           and (d["gamma_eval_lo"] <= d["gamma_eval_hi"])
+                           .all())
+            draw_s = np.asarray(d["draw_s"])
+            rec.update(
+                budget=[CHAINS, WARMUP, SAMPLES],
+                coverage=float(np.mean((gt[None, :] >= d["gamma_eval_lo"])
+                                       & (gt[None, :]
+                                          <= d["gamma_eval_hi"]))),
+                min_ess_median=float(np.median(d["min_ess"])),
+                logp_rhat_median=float(np.median(d["logp_rhat"])),
+                divergence_rate=float(np.mean(d["divergence_rate"])),
+                capture_s=[float(x) for x in d["capture_s"]],
+                draw_s_median=float(np.median(draw_s)))
+            gates = {"finite": finite, "ordered": ordered,
+                     "rmse": rmse < GATE_RMSE, "p90": p90 < GATE_P90}
+        else:
+            n_it = float(np.max(d["n_iter"]))
+            rec.update(restarts=MAP_RESTARTS, cap=MAP_ITER,
+                       lbfgs_iters=int(n_it),
+                       s_per_lbfgs_iter=d["phase_s"]["lbfgs"] / n_it,
+                       converged_share=float(np.mean(d["converged"])))
+            gates = {"finite": finite, "rmse": rmse < MAP_GATE_RMSE,
+                     "p90": p90 < MAP_GATE_P90}
+        rec["gates"] = {k: bool(v) for k, v in gates.items()}
+        print(f"ragged {name}: " + json.dumps(rec) + f" [{card}]")
+        failed += [f"ragged_{name}.{k}" for k, v in gates.items() if not v]
+
+
+def ragged_parity(card, failed):
+    """float64 on the card against the CPU: (a) the masked per-spectrum
+    log density and gradient of R = 64 x CHAINS numpy-made rows of the
+    ragged fleet's first 64 spectra (the card's data copied to the CPU;
+    logp within 1e-10 relative, gradient normwise within 1e-9 a row); (b)
+    the ragged DRT A from the quadrature kernel against its plain version
+    on the first 8 spectra's padded grids, within 1e-12 of the largest
+    entry; and K2's time at the fleet's whole ragged launch beside its
+    bound."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.models.posterior import posterior_value_and_grad
+    from bayes_drt_tpu_torch.ops.matrices import _quad_grid, construct_A
+    from bayes_drt_tpu_torch.ops.quad import drt_quad, drt_quad_plain
+    from bayes_drt_tpu_torch.parallel import batch
+    fleet = sim.make_ragged_fleet(RG_B, RG_SEED)
+    cfg, dat, tgt, _, _, (tau, eps, _) = batch._ragged_setup(
+        fleet, "sample", None, None, False, False, None, "gaussian", 0.002,
+        True, torch.float64, "cuda")
+    nb, n_max = 64, dat.freq.shape[1]
+    R = nb * CHAINS
+    q = np.random.default_rng(31).uniform(-2.0, 2.0, (R, 2 * len(tau) + 9))
+    res = {}
+    first = dat._replace(A=tuple(a[:nb] for a in dat.A),
+                         freq=dat.freq[:nb], lik_mask=dat.lik_mask[:nb])
+    for dev in ("cuda", "cpu"):
+        d_dev = type(dat)(*(
+            tuple(a.to(dev) for a in f) if isinstance(f, tuple)
+            else f.to(dev) if isinstance(f, torch.Tensor) else f
+            for f in first))
+        vg = posterior_value_and_grad(cfg, d_dev, tgt[:nb].to(dev)
+                                      .repeat_interleave(CHAINS, dim=0))
+        res[dev] = [x.cpu() for x in vg(torch.tensor(q, device=dev))]
+    lp_rel = float(((res["cuda"][0] - res["cpu"][0]).abs()
+                    / res["cpu"][0].abs()).max())
+    g_rel = float((torch.linalg.norm(res["cuda"][1] - res["cpu"][1], dim=1)
+                   / torch.linalg.norm(res["cpu"][1], dim=1)).max())
+    print(f"parity ragged density: {nb} spectra (padded grids of {n_max}), "
+          f"R={R}, D={q.shape[1]}, float64: logp largest relative "
+          f"difference {lp_rel:.3e}, grad largest normwise relative "
+          f"difference {g_rel:.3e} [{card}]")
+    if lp_rel > 1e-10 or g_rel > 1e-9:
+        failed.append("ragged_parity.density")
+
+    fp = dat.freq[:8].reshape(-1).cpu().numpy()
+    worst = 0.0
+    for part in ("real", "imag"):
+        a = construct_A(fp, part, tau=tau, epsilon=eps, device="cuda").cpu()
+        h = construct_A(fp, part, tau=tau, epsilon=eps, device="cpu")
+        worst = max(worst, float((a - h).abs().max() / h.abs().max()))
+    print(f"parity ragged A: 8 spectra x {n_max} padded frequencies, K="
+          f"{len(tau)}, float64, largest |card - cpu| / max|A| {worst:.3e}"
+          f" [{card}]")
+    if worst > 1e-12:
+        failed.append("ragged_parity.A")
+
+    # K2 at the whole fleet's ragged launch: every spectrum's padded grid
+    # as one (B * n_max, K) block of log-offsets
+    f_all = dat.freq.reshape(-1)
+    s = torch.log(2 * math.pi * f_all[:, None]
+                  * torch.as_tensor(tau, device="cuda")[None, :])
+    y, w = _quad_grid(1000, 20.0, torch.float64, "cuda")
+    phiw = torch.exp(-((eps * y) ** 2)) * w
+    before = drt_quad.launches
+    ms = cuda_ms(lambda: drt_quad(s, y, phiw, "imag"), 5)
+    drt_quad.launches = before
+    rows, k = s.shape
+    sub = s[:8 * n_max]
+    plain_ms = cuda_ms(lambda: drt_quad_plain(sub, y, phiw, "imag"), 3) \
+        * rows / sub.shape[0]
+    ops_s = rows * k * 1000 * QUAD_FP64_MIN_PER_NODE / (PEAK_FP64_S / 2)
+    bytes_s = 8.0 * (2 * rows * k + 2 * 1000) / PEAK_BYTES_S
+    bound_ms = 1e3 * max(ops_s, bytes_s)
+    print(f"quad ragged launch: rows={rows} (B={RG_B} x n_max="
+          f"{n_max}), K={k}, Q=1000, float64 imag: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms (timed on 8 spectra, "
+          f"scaled by rows), bound {bound_ms:.3f} ms (operations), kernel "
+          f"at {100 * bound_ms / ms:.1f}% of it [{card}]")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1544,7 +1973,8 @@ def main(argv):
     mp = phase_map(card)
     phase_map_parity(card)
     sp = phase_multidist(card)
-    launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] + sp[k]
+    gr = phase_generic(card, state)
+    launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] + sp[k] + gr[k]
                 for k in launches}
     kernels = [
         dict(name="drt_quad", route="cuda",

@@ -135,7 +135,7 @@ def test_unported_options_raise():
     freq, Zb = _batch()
     with pytest.raises(NotImplementedError, match="item 10"):
         fit_spectra_batch(freq, Zb, device="cpu",
-                          **{**KW, "outliers": True})
+                          **{**KW, "monitor_thin": 2})
     for kw in (dict(sampler="chees"), dict(warm_start=object()),
                dict(precondition="pooled")):
         with pytest.raises(NotImplementedError, match="item 12"):

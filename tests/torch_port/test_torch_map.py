@@ -501,7 +501,7 @@ def test_optimize_errors_and_options():
         batch.fit_spectra_batch(freq, Zb, mode="optimize", distributions=ddt,
                                 init_from_ridge=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
-        batch.fit_spectra_batch(freq, Zb, outliers=True, sampler="shmc",
+        batch.fit_spectra_batch(freq, Zb, outliers=True, monitor_thin=2,
                                 device="cpu")
     with pytest.raises(ValueError, match="mode='sample'"):
         batch.fit_spectra_batch(freq, Zb, mode="optimize", quality="strict",

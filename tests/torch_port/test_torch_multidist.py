@@ -552,11 +552,14 @@ def test_unported_options_raise_multidist():
     freq, Zb = _sp_batch(2)
     ddt = {"DDT": dict(TP, basis_freq=BASIS)}
     kw = dict(device="cpu", chains=2, warmup=4, samples=4)
-    for extra in (dict(sampler="shmc"), dict(quality="fast"),
-                  dict(monitor_thin=2), dict(basis="Zic")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            batch.fit_spectra_batch(freq, Zb, distributions=SP_B,
-                                    **{**kw, **extra})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        batch.fit_spectra_batch(freq, Zb, distributions=SP_B,
+                                monitor_thin=2, **kw)
+    # the Zic basis has no L of order 1 or 2 (construct_L's ValueError,
+    # as in the JAX package)
+    with pytest.raises(ValueError, match="Unsupported"):
+        batch.fit_spectra_batch(freq, Zb, distributions=SP_B, basis="Zic",
+                                **kw)
     with pytest.raises(ValueError, match="single-distribution"):
         batch.fit_spectra_batch(freq, Zb, distributions=SP,
                                 init_from_ridge=True, **kw)

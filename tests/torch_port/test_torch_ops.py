@@ -100,10 +100,9 @@ def test_build_shared_matches_jax(ncp, nonneg):
 
 def test_construct_A_rejects_unported_kernels():
     freq, tau, eps = _grid(11)
-    with pytest.raises(NotImplementedError):
-        construct_A(freq, "real", tau=tau, kernel="DDT", basis="Cole-Cole",
-                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        construct_A(freq, "real", tau=tau, basis="Zic", device="cpu")
+    for kernel in ("DRT", "DDT"):
+        with pytest.raises(ValueError, match="Invalid basis"):
+            construct_A(freq, "real", tau=tau, kernel=kernel, basis="box",
+                        device="cpu")
     with pytest.raises(ValueError, match="Invalid kernel"):
         construct_A(freq, "real", tau=tau, kernel="RQ", device="cpu")
