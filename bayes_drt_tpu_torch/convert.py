@@ -4,8 +4,9 @@ The two packages share the flat parameter layout and the posterior's
 fields, so a caller holding the JAX package's ``PosteriorConfig`` /
 ``PosteriorData`` / ``FlatShared`` and sampler state can hand them to the
 port unchanged: this module only converts arrays (anything ``np.asarray``
-accepts) to tensors. It imports nothing of the JAX package; the
-configuration is read by attribute.
+accepts) to tensors. An Inverter's saved fit state crosses as numpy
+(``inverter_state_from_numpy``). It imports nothing of the JAX package;
+the configuration is read by attribute.
 """
 
 from __future__ import annotations
@@ -67,3 +68,21 @@ def flat_state_from_numpy(q, inv_mass, step_size, dtype=None, device=None):
     dt = resolve_dtype(dtype)
     return tuple(_tensor(a, dt, dev).contiguous()
                  for a in (q, inv_mass, step_size))
+
+
+def inverter_state_from_numpy(state):
+    """An Inverter's saved fit state (``save_fit_data``'s dict, of this
+    package or of the JAX package) with every array leaf as a numpy array:
+    dicts, lists and tuples are walked, leaves that export ``__array__``
+    (a device array of either package) are converted, and numpy arrays,
+    numpy scalars and Python values are kept as they are."""
+    if isinstance(state, dict):
+        return {k: inverter_state_from_numpy(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(inverter_state_from_numpy(v) for v in state)
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    if (hasattr(state, "__array__")
+            and not isinstance(state, (np.ndarray, np.generic))):
+        return np.asarray(state)
+    return state

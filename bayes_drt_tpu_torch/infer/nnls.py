@@ -8,8 +8,9 @@ Block principal pivoting: each iteration is one masked K x K Cholesky
 solve, and the active set typically settles in a handful of iterations.
 Every function takes a leading spectra axis, P (B, K, K) and q (B, K). The
 JAX package's while_loop becomes a loop that runs while any row is
-unfinished; finished rows are frozen by masks, so each row's result equals
-its own single solve.
+unfinished; finished rows are frozen by masks, so each row's result is
+its own single solve's (up to the rounding of the batched solves, which
+can differ with the batch size).
 """
 
 from __future__ import annotations
@@ -94,6 +95,111 @@ def qp_cold_sets(P, q, lb, ub):
     return x0 < lbs, x0 > ubs
 
 
+# box-QP iterations run between two host checks of which rows are still
+# pivoting; the rows that are run gather into a compact batch at each
+# check, so a few slow rows do not carry the whole batch
+_QP_CHECK_EVERY = 8
+# on a CUDA device, rows still pivoting after this many iterations (a
+# tail that, in the ill-conditioned ridge QPs of a small lambda, cycles to
+# the iteration cap) finish as replays of one CUDA graph of
+# _QP_GRAPH_STEPS iterations, their batch padded to a power of two: a
+# step of a few rows is bound by its ~40 launches, not its arithmetic
+_QP_GRAPH_AFTER = 64
+_QP_GRAPH_STEPS = 32
+
+
+class _PivotState(NamedTuple):
+    at_lb: torch.Tensor
+    at_ub: torch.Tensor
+    x: torch.Tensor
+    it: torch.Tensor
+    prev_nviol: torch.Tensor
+    done: torch.Tensor
+
+
+def _pivot_step(P, q, lb, ub, tol_p, tol_d, max_iter, s: _PivotState):
+    """One block-principal-pivoting iteration of the rows still running
+    (finished rows are frozen by masks)."""
+    k = q.shape[-1]
+    idx = torch.arange(k, device=q.device)
+    act = (s.it < max_iter) & ~s.done
+    x_new = _masked_solve(P, q, s.at_lb, s.at_ub, lb, ub)
+    g = (P @ x_new[..., None])[..., 0] + q
+    free = (~s.at_lb) & (~s.at_ub)
+    viol_f_lb = free & (x_new < lb - tol_p)
+    viol_f_ub = free & (x_new > ub + tol_p)
+    viol_lb = s.at_lb & (g < -tol_d)
+    viol_ub = s.at_ub & (g > tol_d)
+    any_viol = viol_f_lb | viol_f_ub | viol_lb | viol_ub
+    nviol = any_viol.sum(dim=-1)
+    full_lb = (s.at_lb & ~viol_lb) | viol_f_lb
+    full_ub = (s.at_ub & ~viol_ub) | viol_f_ub
+    top = torch.where(any_viol, idx, torch.full_like(idx, -1)).max(
+        dim=-1).values
+    one_hot = idx[None, :] == top[:, None]
+    single_lb = torch.where(one_hot, full_lb, s.at_lb)
+    single_ub = torch.where(one_hot, full_ub, s.at_ub)
+    use_full = (nviol < s.prev_nviol)[:, None]
+    a1 = act[:, None]
+    return _PivotState(
+        at_lb=torch.where(a1, torch.where(use_full, full_lb, single_lb),
+                          s.at_lb),
+        at_ub=torch.where(a1, torch.where(use_full, full_ub, single_ub),
+                          s.at_ub),
+        x=torch.where(a1, x_new, s.x),
+        it=s.it + act.to(s.it.dtype),
+        prev_nviol=torch.where(act & use_full[:, 0], nviol, s.prev_nviol),
+        done=torch.where(act, nviol == 0, s.done))
+
+
+def _padded_tail(P, q, lb, ub, tol_p, tol_d, max_iter, sub: _PivotState):
+    """The rows of ``sub`` padded to a power of two with copies of the first
+    row (n, the padded state, and ``run``, which advances that state in
+    place by _QP_GRAPH_STEPS iterations)."""
+    n = sub.x.shape[0]
+    rows = max(8, 1 << (n - 1).bit_length())
+
+    def padded(t):
+        if rows == n:
+            return t.clone()
+        return torch.cat([t, t[:1].expand((rows - n,) + t.shape[1:])])
+
+    P_, q_, lb_, ub_, td_ = (padded(t).contiguous()
+                             for t in (P, q, lb, ub, tol_d))
+    st = _PivotState(*(padded(t) for t in sub))
+
+    def run():
+        s = st
+        for _ in range(_QP_GRAPH_STEPS):
+            s = _pivot_step(P_, q_, lb_, ub_, tol_p, td_, max_iter, s)
+        for dst, src in zip(st, s):
+            dst.copy_(src)
+
+    return n, st, run
+
+
+def _graphed_tail(P, q, lb, ub, tol_p, tol_d, max_iter, sub: _PivotState):
+    """Pivot the rows of ``sub`` (on a CUDA device) to their end,
+    _QP_GRAPH_STEPS iterations a replay of one captured CUDA graph of
+    ``_padded_tail``'s ``run``, whose padding rows are dropped."""
+    n, st, run = _padded_tail(P, q, lb, ub, tol_p, tol_d, max_iter, sub)
+    start = _PivotState(*(t.clone() for t in st))
+    dev = P.device
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):      # first use of every op off-graph
+        run()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    for dst, src in zip(st, start):
+        dst.copy_(src)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    while bool(((st.it[:n] < max_iter) & ~st.done[:n]).any()):
+        graph.replay()
+    return _PivotState(*(t[:n].clone() for t in st))
+
+
 def solve_qp_box(P, q, lb, ub, max_iter: int = 100, tol: float = 1e-10,
                  warm_sets=None) -> QPResult:
     """Block principal pivoting for B box-constrained QPs at once.
@@ -102,7 +208,10 @@ def solve_qp_box(P, q, lb, ub, max_iter: int = 100, tol: float = 1e-10,
     safeguard flips only the highest-index violation when the violation
     count fails to decrease, which guarantees finite termination.
     ``warm_sets``: optional (at_lb, at_ub) (B, K) boolean arrays seeding
-    the active set."""
+    the active set. Each row's iterations depend on that row alone, so
+    the rows still pivoting are gathered into a compact batch every
+    ``_QP_CHECK_EVERY`` iterations, and on a CUDA device those still
+    pivoting after ``_QP_GRAPH_AFTER`` finish as CUDA graph replays."""
     dtype = P.dtype
     q = q.to(dtype)
     b, k = q.shape
@@ -123,44 +232,47 @@ def solve_qp_box(P, q, lb, ub, max_iter: int = 100, tol: float = 1e-10,
         x0 = _spd_solve(P, -q)
         at_lb, at_ub = x0 < lb, x0 > ub
         x = torch.minimum(torch.maximum(x0, lb), ub)
-    it = torch.zeros(b, dtype=torch.int64, device=q.device)
-    prev_nviol = torch.full((b,), k + 1, dtype=torch.int64, device=q.device)
-    done = torch.zeros(b, dtype=torch.bool, device=q.device)
-    idx = torch.arange(k, device=q.device)
+    st = _PivotState(
+        at_lb=at_lb, at_ub=at_ub, x=x,
+        it=torch.zeros(b, dtype=torch.int64, device=q.device),
+        prev_nviol=torch.full((b,), k + 1, dtype=torch.int64,
+                              device=q.device),
+        done=torch.zeros(b, dtype=torch.bool, device=q.device))
 
-    act = (it < max_iter) & ~done
+    act = (st.it < max_iter) & ~st.done
+    steps = 0
     while bool(act.any()):
-        x_new = _masked_solve(P, q, at_lb, at_ub, lb, ub)
-        g = (P @ x_new[..., None])[..., 0] + q
-        free = (~at_lb) & (~at_ub)
-        viol_f_lb = free & (x_new < lb - tol_p)
-        viol_f_ub = free & (x_new > ub + tol_p)
-        viol_lb = at_lb & (g < -tol_d)
-        viol_ub = at_ub & (g > tol_d)
-        any_viol = viol_f_lb | viol_f_ub | viol_lb | viol_ub
-        nviol = any_viol.sum(dim=-1)
-        full_lb = (at_lb & ~viol_lb) | viol_f_lb
-        full_ub = (at_ub & ~viol_ub) | viol_f_ub
-        top = torch.where(any_viol, idx, torch.full_like(idx, -1)).max(
-            dim=-1).values
-        one_hot = idx[None, :] == top[:, None]
-        single_lb = torch.where(one_hot, full_lb, at_lb)
-        single_ub = torch.where(one_hot, full_ub, at_ub)
-        use_full = (nviol < prev_nviol)[:, None]
-        a1 = act[:, None]
-        at_lb = torch.where(a1, torch.where(use_full, full_lb, single_lb),
-                            at_lb)
-        at_ub = torch.where(a1, torch.where(use_full, full_ub, single_ub),
-                            at_ub)
-        x = torch.where(a1, x_new, x)
-        prev_nviol = torch.where(act & use_full[:, 0], nviol, prev_nviol)
-        done = torch.where(act, nviol == 0, done)
-        it = it + act.to(it.dtype)
-        act = (it < max_iter) & ~done
+        rows = torch.nonzero(act).flatten()
+        sub = _PivotState(*(f[rows] for f in st))
+        args = (P[rows], q[rows], lb[rows], ub[rows], tol_p, tol_d[rows],
+                max_iter)
+        if P.device.type == "cuda" and steps >= _QP_GRAPH_AFTER:
+            sub = _graphed_tail(*args, sub)
+        else:
+            for _ in range(_QP_CHECK_EVERY):
+                sub = _pivot_step(*args, sub)
+            steps += _QP_CHECK_EVERY
+        fields = []
+        for f_all, f_sub in zip(st, sub):
+            f_all = f_all.clone()
+            f_all[rows] = f_sub
+            fields.append(f_all)
+        st = _PivotState(*fields)
+        act = (st.it < max_iter) & ~st.done
 
+    x = st.x
     free = (x > lb + tol_p) & (x < ub - tol_p)
     x = torch.minimum(torch.maximum(x, lb), ub) * d
     g = (P_orig @ x[..., None])[..., 0] + q_orig
     kkt = torch.where(free, g.abs(), torch.zeros_like(g)).max(dim=-1).values
-    return QPResult(x=x, n_iter=it, kkt_violation=kkt, converged=done,
-                    at_lb=at_lb, at_ub=at_ub)
+    return QPResult(x=x, n_iter=st.it, kkt_violation=kkt,
+                    converged=st.done, at_lb=st.at_lb, at_ub=st.at_ub)
+
+
+def solve_nnls(P, q, max_iter: int = 100, tol: float = 1e-10) -> QPResult:
+    """Non-negative QPs: ``solve_qp_box`` with lb = 0, ub = inf, for P
+    (B, K, K), q (B, K)."""
+    k = P.shape[-1]
+    lb = torch.zeros(k, dtype=P.dtype, device=P.device)
+    return solve_qp_box(P, q, lb, torch.full_like(lb, float("inf")),
+                        max_iter=max_iter, tol=tol)

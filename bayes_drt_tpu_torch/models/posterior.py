@@ -389,7 +389,7 @@ def log_density(cfg: PosteriorConfig, data: PosteriorData, params: dict,
 
 
 def posterior_value_and_grad(cfg: PosteriorConfig, data: PosteriorData,
-                             targets, jacobian: bool = True):
+                             targets, jacobian: bool = True, density=None):
     """Batched value and gradient of ``log_density`` by autograd (the
     counterpart of the JAX package's ``jax.value_and_grad`` of
     ``log_density`` vmapped over rows): returns ``vg(q)`` taking flat rows
@@ -399,7 +399,10 @@ def posterior_value_and_grad(cfg: PosteriorConfig, data: PosteriorData,
     row r fitting spectrum r // (R / B), and each spectrum's A multiplies
     its own rows only. No host synchronization, so CUDA graphs can capture
     it (the NUTS trees, the SHMC trajectories and the L-BFGS iterations
-    do)."""
+    do). ``density`` replaces ``log_density`` by a function of the same
+    signature ``(cfg, data, params, jacobian)``."""
+    if density is None:
+        density = log_density
     nb = data.freq.shape[0] if data.freq.ndim == 2 else None
     if nb is None:
         dat = data._replace(target=targets)
@@ -411,7 +414,7 @@ def posterior_value_and_grad(cfg: PosteriorConfig, data: PosteriorData,
         with torch.enable_grad():
             x = q.detach().requires_grad_(True)
             xs = x if nb is None else x.reshape(nb, -1, x.shape[-1])
-            lp = log_density(cfg, dat, unravel(cfg, xs), jacobian=jacobian)
+            lp = density(cfg, dat, unravel(cfg, xs), jacobian=jacobian)
             (g,) = torch.autograd.grad(lp.sum(), x)
         return lp.detach().reshape(-1), g
 

@@ -17,14 +17,15 @@ a ridge seed. The single series DRT takes the hand-written value and
 gradient; every other model autograd of models/posterior.log_density.
 ``fit_spectra_ragged`` fits spectra measured on different grids,
 padded to one length and masked, each with its own A matrices.
-``ridge_fit_spectra_batch`` is the batched hyper-lambda ridge
-(infer/ridge.py) that seeds both; ``predict_Z_batch`` evaluates a fit's
-impedance. A DRT's A matrices come from the hand-written quadrature
-kernel (ops/quad.py).
+``ridge_fit_spectra_batch`` is the batched ridge (infer/ridge.py:
+hyper-lambda, ordinary or hyper-weights, lambda_0 by Re-Im
+cross-validation) that seeds a single series distribution's fits, the
+Inverter's admittance ridge a single parallel one's;
+``predict_Z_batch`` evaluates a fit's impedance. A DRT's A matrices come
+from the hand-written quadrature kernel (ops/quad.py).
 
-Not ported yet: ChEES, warm starts, the pooled preconditioner, the ridge
-seed of a single parallel distribution, cross-validated and
-hyper-weights ridge, ``monitor_thin`` and meshes.
+Not ported yet: ChEES, warm starts, the pooled preconditioner,
+``monitor_thin`` and meshes.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from ..infer.chees import SHMCConfig, sample_shmc
 from ..infer.diagnostics import ess_bulk_jnp, ess_jnp, rhat_rank_jnp
 from ..infer.map import newton_polish, run_lbfgs, run_lbfgs_restarts
 from ..infer.nuts import NUTSConfig, sample_nuts
-from ..infer.ridge import (HyperLambdaConfig, RidgeData, run_hyper_lambda,
+from ..infer.ridge import (HyperLambdaConfig, RidgeData, ridge_rows,
+                           run_hyper_lambda, run_hyper_weights,
                            run_ordinary_ridge)
 from ..infer.shmc_flat import (flat_eligible, flat_shared_for,
                                flat_spec_for, flat_value_and_grad,
@@ -326,11 +328,13 @@ class MapObjective:
     ``jax.hessian``: reverse over reverse (torch.func.jacrev twice), since
     torch.func.hessian's forward-over-reverse fails on a float32 matmul (a
     float64 tangent) and is slower. Both take the rows' indices into
-    ``targets`` (all rows when None)."""
+    ``targets`` (all rows when None). ``density`` replaces log_density
+    (and the hand-written gradient) by a function of its signature."""
 
-    def __init__(self, cfg, data, targets):
+    def __init__(self, cfg, data, targets, density=None):
         self.cfg, self.data, self.targets = cfg, data, targets
-        self.flat = flat_eligible(cfg)
+        self.density = log_density if density is None else density
+        self.flat = flat_eligible(cfg) and density is None
         if self.flat:
             self.spec = flat_spec_for(cfg, data)
             self.shared = flat_shared_for(cfg, data, targets.dtype)
@@ -347,15 +351,16 @@ class MapObjective:
         else:
             lp, g = posterior_value_and_grad(self.cfg, self.data,
                                              self._targets(rows),
-                                             jacobian=False)(q)
+                                             jacobian=False,
+                                             density=self.density)(q)
         return -lp, -g
 
     def hessian(self, q, rows=None):
-        cfg, data = self.cfg, self.data
+        cfg, data, density = self.cfg, self.data, self.density
 
         def loss(q_row, t_row):
-            return -log_density(cfg, data._replace(target=t_row),
-                                unravel(cfg, q_row), jacobian=False)
+            return -density(cfg, data._replace(target=t_row),
+                            unravel(cfg, q_row), jacobian=False)
 
         hess = torch.func.jacrev(torch.func.jacrev(loss))
         return torch.func.vmap(hess)(q, self._targets(rows))
@@ -407,11 +412,59 @@ def _outlier_seed(iv_x, iv_rinf, iv_induc, targets, data):
     return np.where(flag, 1.0, 0.1)
 
 
+def _parallel_ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
+                                ridge_kw, dtype, device, dists_norm,
+                                basis_freq, epsilon, basis, outliers):
+    """Ridge-seeded init values of a single parallel distribution: one
+    Inverter admittance ridge a spectrum, on the fit's device and dtype,
+    in the posterior's scaled coordinates (the admittance coefficients
+    scale up by the spectrum's Z scale), padded like the batch; with
+    ``outliers``, sigma_out_raw 1.0 at the points the Inverter's
+    ``check_outliers(threshold=3)`` flags and 0.1 elsewhere. Sampling a
+    parallel model needs this seed: random-init chains can stick in the
+    Y ~ 0 mode far below the data-fitting one."""
+    from ..inverter import Inverter      # the Inverter imports this module
+    rdefaults = dict(penalty="integral", hyper_lambda=True, lambda_0=1.0,
+                     hl_beta=5, weights="modulus")
+    rdefaults.update(ridge_kw or {})
+    name0 = sort_distributions(dists_norm)[0]
+    clean = {name0: {k: v for k, v in dists_norm[name0].items()
+                     if not k.startswith("_")}}
+    iv_x = np.zeros((b_real, K))
+    iv_rinf = np.zeros(b_real)
+    iv_induc = np.zeros(b_real)
+    iv_sig = np.full((b_real, len(frequencies)), 0.1) if outliers else None
+    inv = Inverter(distributions=clean, basis_freq=basis_freq, basis=basis,
+                   epsilon=epsilon, device=device, dtype=dtype)
+    for i in range(b_real):
+        inv.ridge_fit(frequencies, Z_batch[i], **rdefaults)
+        iv_x[i] = inv.distribution_fits[name0]["coef"] * z_scales[i]
+        iv_rinf[i] = max(float(inv.R_inf) / z_scales[i], 1e-10) / 100.0
+        iv_induc[i] = max(float(inv.inductance) / z_scales[i], 1e-10)
+        if outliers:
+            oidx = inv.check_outliers(frequencies, Z_batch[i], threshold=3,
+                                      use_existing_fit=True)
+            iv_sig[i][np.asarray(oidx).ravel()] = 1.0
+    b = Z_batch.shape[0]
+    iv = {"x_0": iv_x, "Rinf_raw": iv_rinf, "induc_raw": iv_induc}
+    if outliers:
+        iv["sigma_out_raw"] = iv_sig
+    return {k: _pad_rows(v, b) for k, v in iv.items()}
+
+
 def _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data, targets,
-                ridge_kw, dtype, device, basis_freq, epsilon, outliers):
-    """init_unconstrained's init_values from the batched ridge, (b, ...)
-    rows: x_0, Rinf_raw, induc_raw and, with ``outliers``, the 3-sigma
-    sigma_out_raw seed."""
+                ridge_kw, dtype, device, basis_freq, epsilon, outliers,
+                dists_norm, basis):
+    """init_unconstrained's init_values from a ridge fit, (b, ...) rows:
+    x_0, Rinf_raw, induc_raw and, with ``outliers``, the sigma_out_raw
+    seed; the batched ridge for a single series distribution (the
+    3-sigma outlier seed), the Inverter's per-spectrum admittance ridge
+    for a single parallel one."""
+    if cfg.dists[0].dist_type == "parallel":
+        return _parallel_ridge_init_values(
+            frequencies, Z_batch, b_real, z_scales, cfg.dists[0].K,
+            ridge_kw, dtype, device, dists_norm, basis_freq, epsilon, basis,
+            outliers)
     iv_x, iv_rinf, iv_induc = _ridge_init_values(
         frequencies, Z_batch, b_real, z_scales, cfg.dists[0].K, ridge_kw,
         dtype, device, basis_freq=basis_freq, epsilon=epsilon)
@@ -428,8 +481,6 @@ def _per_spectrum(x, b, chains):
 
 
 _ITEM_10 = "is not ported yet (ROADMAP Queue 1 item 10)"
-_ITEM_11 = ("needs the per-spectrum admittance ridge of a single parallel "
-            "distribution, which is not ported yet (ROADMAP Queue 1 item 11)")
 
 
 def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
@@ -498,14 +549,16 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     hand-written value and gradient (infer/shmc_flat.py); every other
     model autograd of models/posterior.log_density.
 
-    ``init_from_ridge`` (a single series distribution): every chain, or
-    the one L-BFGS run, starts at the coordinates of a batched
-    hyper-lambda ridge solution (``ridge_kw`` overrides its defaults), the
-    other parameters Stan-random; with ``outliers``, ``sigma_out`` starts
-    high at the frequencies whose ridge residual exceeds 3 standard
-    deviations. ``z_scale`` overrides the data-derived per-spectrum scale
-    (for a single parallel planar DDT the rule targets the calibrated
-    admittance std Y*).
+    ``init_from_ridge`` (a single distribution): every chain, or the one
+    L-BFGS run, starts at the coordinates of a ridge solution
+    (``ridge_kw`` overrides its defaults; the batched hyper-lambda ridge
+    for a series distribution, the Inverter's admittance ridge of each
+    spectrum for a parallel one), the other parameters Stan-random; with
+    ``outliers``, ``sigma_out`` starts high at the frequencies whose ridge
+    residual exceeds 3 standard deviations (series) or that the
+    Inverter's ``check_outliers`` flags (parallel). ``z_scale`` overrides
+    the data-derived per-spectrum scale (for a single parallel planar DDT
+    the rule targets the calibrated admittance std Y*).
 
     ``quality``: a named preset of QUALITY_PRESETS overriding the sampler
     choice and budget ('fast': the bench's SHMC configuration; 'strict':
@@ -532,9 +585,8 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     ``basis`` names the RBF family (construct_L, like the JAX package's,
     builds the penalty's orders 1 and 2 for 'gaussian' only, so other
     bases raise its ValueError). Not ported (they raise, naming their
-    ROADMAP item): ``monitor_thin`` (item 10); a ridge seed of a single
-    parallel distribution, so its default escalation too (item 11);
-    ChEES, ``warm_start`` and ``precondition`` (item 12).
+    ROADMAP item): ``monitor_thin`` (item 10); ChEES, ``warm_start`` and
+    ``precondition`` (item 12).
     """
     if quality is not None:
         if quality not in QUALITY_PRESETS:
@@ -562,12 +614,9 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     n_dists = len(dists)
     single_parallel = (n_dists == 1 and next(iter(dists.values()))[
         "dist_type"] == "parallel")
-    if init_from_ridge:
-        if n_dists > 1:
-            raise ValueError("Ridge initialization can only be performed "
-                             "for single-distribution fits")
-        if single_parallel:
-            raise NotImplementedError(f"init_from_ridge {_ITEM_11}")
+    if init_from_ridge and n_dists > 1:
+        raise ValueError("Ridge initialization can only be performed for "
+                         "single-distribution fits")
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     mark, phases = _phase_clock(timing, dev)
@@ -600,8 +649,6 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if init_from_ridge and sampler == "shmc" and flat:
         raise ValueError("init_from_ridge does not support the flat-chain "
                          "SHMC sampler; use sampler='nuts'")
-    # the escalation's refit, resolved up front so that a refit the port
-    # cannot run raises before the fit, not after a spectrum is flagged
     if escalate is None:
         escalate = (warm_start is None
                     and (sampler == "shmc"
@@ -614,10 +661,6 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         # an initialization pathology, not a trajectory-length one
         esc_kw["init_from_ridge"] = True
     esc_kw.update(escalate_kw or {})
-    if escalate and single_parallel and esc_kw.get("init_from_ridge"):
-        raise NotImplementedError(
-            f"the default escalation refit (escalate=None or True) {_ITEM_11}"
-            "; pass escalate=False")
     if sampler == "shmc":
         sh_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
         sh_cfg.validate()
@@ -653,7 +696,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if init_from_ridge:
         iv = _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data,
                          targets, ridge_kw, dt, dev, basis_freq, epsilon,
-                         outliers)
+                         outliers, dists_norm, basis)
         init_values = {k: v[:, None] for k, v in iv.items()}
         mark("ridge")
     q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
@@ -861,7 +904,7 @@ def _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dtype, device,
         iv = _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data,
                          targets, ridge_kw, dtype, device,
                          setup_kw["basis_freq"], setup_kw["epsilon"],
-                         cfg.outliers)
+                         cfg.outliers, dists_norm, setup_kw["basis"])
         mark("ridge")
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen, batch_shape=(b,),
                                            init_values=iv))
@@ -1312,6 +1355,13 @@ def _format_weights_batch(Z, weights):
     return np.ascontiguousarray(w.real), np.ascontiguousarray(w.imag)
 
 
+# (spectrum, lambda) rows of one Re-Im cross-validation block: bounds the
+# block's replicated design (rows, N, K) and QP matrices (rows, K, K), ~6
+# GB at the main path's 1024 spectra x 31 lambdas in float32 (one block:
+# a block's QPs wait for its slowest row, so fewer blocks wait less)
+_CV_ROWS = 32768
+
+
 def ridge_fit_spectra_batch(frequencies, Z_batch, basis_freq=None,
                             epsilon=None, penalty: str = "integral",
                             hyper_lambda: bool = True,
@@ -1321,6 +1371,7 @@ def ridge_fit_spectra_batch(frequencies, Z_batch, basis_freq=None,
                             xtol: float = 1e-3, mesh=None,
                             basis: str = "gaussian", dtype=None,
                             cv_lambdas=None, hyper_weights: bool = False,
+                            hw_beta: float = 2.0, hw_wbar=1.0,
                             device=None) -> BatchFitResult:
     """Batched hyper-lambda (or ordinary, ``hyper_lambda=False``) ridge
     DRT fits of B spectra on one frequency grid: a series DRT with R_inf
@@ -1332,15 +1383,31 @@ def ridge_fit_spectra_batch(frequencies, Z_batch, basis_freq=None,
     in ``dtype`` (float32 by default). ``diagnostics`` holds each
     spectrum's iteration count and convergence flag.
 
-    Not ported: ``cv_lambdas`` and ``hyper_weights`` (ROADMAP Queue 1 item
-    8) and ``mesh`` (item 12) raise."""
+    ``cv_lambdas``: an (L,) grid of lambda_0 values selected per spectrum
+    by Re-Im cross-validation (``lambda_0`` is then ignored): at every
+    grid value a real-part fit predicts the imaginary part and an
+    imaginary-part fit the real part, each after its part-specific offset
+    recovery (the imaginary fit cannot see R_inf, the real fit the
+    inductance); the spectrum takes the grid index of the least summed
+    squared prediction error and its both-part fit there. The real and
+    the imaginary fits of every (spectrum, lambda) pair run as one batch
+    of rows each, in blocks of at most ``_CV_ROWS`` rows. Diagnostics gain
+    ``cv_lambda`` (B,) and ``cv_recv`` / ``cv_imcv`` / ``cv_totcv`` (B, L);
+    a warning names the spectra that selected a grid boundary.
+
+    ``hyper_weights=True`` (with ``hyper_lambda=False``): the
+    Effat-Ciucci outlier-robust ridge, whose point weights iterate from
+    the prior means ``hw_wbar`` (the weights vocabulary; ``weights`` is
+    unused) with strength ``hw_beta``; the fitted weights land in
+    ``diagnostics['weights_re'/'weights_im']`` (B, N) in the caller's
+    point order (small values mark outliers).
+
+    Not ported: ``mesh`` (item 12) raises."""
     if hyper_weights and hyper_lambda:
         raise ValueError("hyper_lambda and hyper_weights fits cannot be "
                          "combined; pass hyper_lambda=False")
-    if hyper_weights or cv_lambdas is not None:
-        raise NotImplementedError(
-            "hyper_weights and cv_lambdas ridge fits are not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+    if hyper_weights and cv_lambdas is not None:
+        raise ValueError("cv_lambdas is not supported with hyper_weights")
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
                                   "item 12)")
@@ -1393,7 +1460,10 @@ def ridge_fit_spectra_batch(frequencies, Z_batch, basis_freq=None,
 
     z_scales = np.std(np.abs(Z_batch), axis=1) / np.sqrt(n / 81)
     Zs = Z_batch / z_scales[:, None]
-    w_re, w_im = _format_weights_batch(Zs, weights)
+    # with hyper_weights the point weights evolve from the prior means
+    # hw_wbar and the likelihood weights are unused
+    w_re, w_im = _format_weights_batch(Zs, hw_wbar if hyper_weights
+                                       else weights)
     lb = np.zeros(k) if nonneg else np.concatenate([np.zeros(2),
                                                     np.full(kb, -10.0)])
     ub = np.full(k, np.inf)
@@ -1405,27 +1475,87 @@ def ridge_fit_spectra_batch(frequencies, Z_batch, basis_freq=None,
             a = torch.as_tensor(np.ascontiguousarray(a, float), device=dev)
         return a.to(dt)
 
+    A_re_t, A_im_t, T_re, T_im = t(A_re), t(A_im), t(Zs.real), t(Zs.imag)
     wr, wi = t(w_re), t(w_im)
-    data = RidgeData(WA_re=wr[:, :, None] * t(A_re), WA_im=wi[:, :, None]
-                     * t(A_im), WT_re=wr * t(Zs.real), WT_im=wi * t(Zs.imag),
-                     L2_base=t(torch.stack(L2_base)),
+    data = RidgeData(WA_re=wr[:, :, None] * A_re_t,
+                     WA_im=wi[:, :, None] * A_im_t, WT_re=wr * T_re,
+                     WT_im=wi * T_im, L2_base=t(torch.stack(L2_base)),
                      L_ops=t(torch.stack(L_ops)),
                      L1_vec=torch.zeros(k, dtype=dt, device=dev),
                      reg_frac=t(frac), lb=t(lb), ub=t(ub))
-    if hyper_lambda:
-        res = run_hyper_lambda(cfg, data, torch.full((k,), 1e-6, dtype=dt,
-                                                     device=dev),
-                               torch.full((3,), float(hl_beta), dtype=dt,
-                                          device=dev), lambda_0, xtol=xtol)
+
+    def solve_at(scfg, dat, lam):
+        if hyper_lambda:
+            return run_hyper_lambda(
+                scfg, dat, torch.full((k,), 1e-6, dtype=dt, device=dev),
+                torch.full((3,), float(hl_beta), dtype=dt, device=dev), lam,
+                xtol=xtol)
+        return run_ordinary_ridge(scfg.part, dat, lam)
+
+    diagnostics = {}
+    if hyper_weights:
+        res = run_hyper_weights("both", data, A_re_t, A_im_t, T_re, T_im,
+                                lambda_0, hw_beta, wr, wi,
+                                max_iter=max_iter, xtol=xtol)
+        # the caller's point order
+        inv_order = np.argsort(f_order)
+        diagnostics["weights_re"] = res.weights_re.cpu().numpy()[
+            :, inv_order]
+        diagnostics["weights_im"] = res.weights_im.cpu().numpy()[
+            :, inv_order]
+    elif cv_lambdas is None:
+        res = solve_at(cfg, data, lambda_0)
     else:
-        res = run_ordinary_ridge("both", data, lambda_0)
+        grid = t(np.asarray(cv_lambdas, float))
+        recv, imcv = _cv_errors(cfg, data, grid, A_re_t, A_im_t, T_re, T_im,
+                                solve_at)
+        idx = torch.argmin(recv + imcv, dim=1)
+        res = solve_at(cfg, data, grid[idx])
+        idx = idx.cpu().numpy()
+        recv, imcv = recv.cpu().numpy(), imcv.cpu().numpy()
+        diagnostics.update(cv_lambda=grid.cpu().numpy()[idx].astype(float),
+                           cv_recv=recv, cv_imcv=imcv, cv_totcv=recv + imcv)
+        n_boundary = int(np.sum((idx == 0) | (idx == len(grid) - 1)))
+        if n_boundary:
+            warnings.warn(
+                f"Re-Im CV selected a boundary lambda for {n_boundary} "
+                "spectra; re-run with an expanded cv_lambdas range for an "
+                "accurate estimate.")
     coefs = res.coef.cpu().numpy() * z_scales[:, None]
-    diagnostics = {"n_iter": res.n_iter.cpu().numpy(),
-                   "converged": res.converged.cpu().numpy()}
+    diagnostics.update(n_iter=res.n_iter.cpu().numpy(),
+                       converged=res.converged.cpu().numpy())
     return BatchFitResult(
         coef=coefs[:, 2:], r_inf=coefs[:, 0], inductance=coefs[:, 1] * 1e-4,
         gamma_lo=None, gamma_hi=None, z_scales=z_scales, tau=tau, epsilon=eps,
         diagnostics=diagnostics, basis=basis)
+
+
+def _cv_errors(cfg, data, grid, A_re, A_im, T_re, T_im, solve_at):
+    """Held-out prediction errors of every spectrum at every grid lambda,
+    (B, L) each: the real-part fit's squared error on the imaginary part
+    (imcv) and the imaginary-part fit's on the real part (recv),
+    unweighted, after the part-specific offset recovery. Rows are
+    (spectrum, lambda) pairs, spectrum-major, in blocks of _CV_ROWS."""
+    b, n_lam = T_re.shape[0], grid.shape[0]
+    per_block = max(1, _CV_ROWS // n_lam)
+    cfg_re, cfg_im = cfg._replace(part="real"), cfg._replace(part="imag")
+    bvec = A_im[:, 1]
+    recv, imcv = [], []
+    for i in range(0, b, per_block):
+        sl = torch.arange(i, min(i + per_block, b),
+                          device=T_re.device).repeat_interleave(n_lam)
+        rows = ridge_rows(data, sl)
+        lam = grid.repeat(len(sl) // n_lam)
+        coef_r = solve_at(cfg_re, rows, lam).coef
+        coef_i = solve_at(cfg_im, rows, lam).coef
+        t_re, t_im = T_re[sl], T_im[sl]
+        coef_i[:, 0] = (t_re - coef_i[:, 2:] @ A_re[:, 2:].T).mean(dim=1)
+        zi_resid = t_im - coef_r[:, 2:] @ A_im[:, 2:].T
+        coef_r[:, 1] = (zi_resid @ bvec) / (bvec @ bvec)
+        imcv.append(((t_im - coef_r @ A_im.T) ** 2).sum(dim=1))
+        recv.append(((t_re - coef_i @ A_re.T) ** 2).sum(dim=1))
+    return (torch.cat(recv).reshape(b, n_lam),
+            torch.cat(imcv).reshape(b, n_lam))
 
 
 def evaluate_gamma(result: BatchFitResult, eval_tau, which: str = "coef"):

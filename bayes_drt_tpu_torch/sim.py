@@ -1,8 +1,10 @@
-"""Synthetic EIS data: analytic DRTs, the reference simulation circuits,
-the impedance of a parallel DDT with a Cole-Cole distribution of diffusion
-times, and the seeded uniform noise model of the benchmark batches (copy of
-bayes_drt_tpu/sim.py, which this package may not import; the DDT's
-diffusion impedance comes from ops/kernels.py on the CPU)."""
+"""Synthetic EIS data: analytic DRTs (ZARC, Gerischer, Havriliak-Negami),
+circuit elements, the reference simulation circuits, the impedance of a
+parallel DDT with a Cole-Cole distribution of diffusion times, and the
+seeded noise models (copy of bayes_drt_tpu/sim.py, which this package may
+not import; the DDT's diffusion impedance comes from ops/kernels.py on
+the CPU, the Havriliak-Negami analytics are numpy copies of
+bayes_drt_tpu/peaks.py:22-33)."""
 
 from __future__ import annotations
 
@@ -28,6 +30,17 @@ def gerischer_drt(tau, t0):
     return out
 
 
+def hn_drt(tau, t0, alpha, beta):
+    """Analytical DRT of a Havriliak-Negami element (unit resistance).
+    alpha=1: ZARC; beta=1: Cole-Davidson; alpha=0.5, beta=1: Gerischer."""
+    tau = np.asarray(tau, float)
+    r = (tau / t0) ** beta
+    theta = np.arctan2(np.sin(np.pi * beta), r + np.cos(np.pi * beta))
+    return ((1.0 / np.pi) * (tau / t0) ** (beta * alpha)
+            * np.sin(alpha * theta)
+            / (1.0 + 2.0 * np.cos(np.pi * beta) * r + r ** 2) ** (alpha / 2.0))
+
+
 def z_rc(freq, R, tau):
     """Parallel RC: R / (1 + j w tau)."""
     omega = 2 * np.pi * np.asarray(freq, float)
@@ -44,6 +57,17 @@ def z_gerischer(freq, R, t0):
     """Gerischer: R / sqrt(1 + j w t0)."""
     omega = 2 * np.pi * np.asarray(freq, float)
     return R / np.sqrt(1 + 1j * omega * t0)
+
+
+def z_inductor(freq, L):
+    omega = 2 * np.pi * np.asarray(freq, float)
+    return 1j * omega * L
+
+
+def z_hn(freq, R, t0, alpha, beta):
+    """Havriliak-Negami element: R / (1 + (j w t0)^beta)^alpha."""
+    omega = 2 * np.pi * np.asarray(freq, float)
+    return R / (1.0 + (1j * omega * t0) ** beta) ** alpha
 
 
 def cole_cole_rbf(y, epsilon):
@@ -91,6 +115,25 @@ def add_simple_noise(Z, seed, scale, kind="uniform"):
     else:
         raise ValueError(f"Invalid kind {kind!r}")
     return Z, sigma_r, sigma_i
+
+
+def add_model_noise(Z, seed, alpha, beta, model="Orazem"):
+    """Orazem (sigma = a|Z'| + b|Z''|, shared) or Macdonald
+    (sigma_r/i = a + b|Z'_/''|, distinct) structured noise, with the
+    reference's RandomState call pattern."""
+    rs = np.random.RandomState(seed)
+    rands = rs.normal(loc=0, size=(len(Z), 2), scale=1)
+    Z = np.copy(Z)
+    if model == "Orazem":
+        sigma = alpha * np.abs(Z.real) + beta * np.abs(Z.imag)
+        Z = Z + rands[:, 0] * sigma + 1j * rands[:, 1] * sigma
+        return Z, sigma, sigma
+    if model == "Macdonald":
+        sigma_r = alpha + beta * np.abs(Z.real)
+        sigma_i = alpha + beta * np.abs(Z.imag)
+        Z = Z + rands[:, 0] * sigma_r + 1j * rands[:, 1] * sigma_i
+        return Z, sigma_r, sigma_i
+    raise ValueError(f"Invalid model {model!r}")
 
 
 def reference_circuit(name, freq):

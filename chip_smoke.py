@@ -75,8 +75,26 @@ line is printed):
      form (2 restarts, cap 2000, no polish), gated on RMSE and p90; (d)
      float64 card-vs-CPU parity of the ragged density and gradient and of
      the ragged DRT A, and K2's time at the fleet's ragged launch.
-  13. one JSON line listing both kernels with their launches (phases 4,
-     6, 7, 10, 11 and 12) and times; K2's bound counts the function's
+  13. the Inverter: (a) Inverter.ridge_fit on one noisy ZARC spectrum
+     (N=81) for each option family (the presets, part fits, L1, dZ,
+     hyper-a/b, LM, hyper-weights, ordinary, x0, Cholesky, no inductance,
+     the phase-offset correction) and a blocking-DDT admittance ridge, each
+     held in float64 to the CPU, and the default fit gated as the JAX
+     package's ridge quick-start; (b) ridge_fit_spectra_batch on the main
+     path's 1024 spectra with the Re-Im CV (31 lambdas; its bars from
+     the JAX package's own CV on the same spectra) and the hyper-weights
+     ridge, gated, with float64 card-vs-CPU parity on 8, and the box QP's
+     CUDA-graph tail held to its eager loop in float64 on CV rows that
+     pivot to their iteration cap;
+     (c) the single-parallel ridge seed: 16 blocking-DDT spectra through
+     the default escalation, the gate forced, so each is refitted by NUTS
+     md8 from the Inverter's admittance ridge; (d) Inverter.fit: MAP
+     twice, NUTS md10 twice at a cut budget and once at the JAX package's
+     Inverter test budget (there also rhat_max < 5), SHMC, each gated as
+     the JAX package's Inverter tests, check_outliers and a save/load
+     round trip.
+  14. one JSON line listing both kernels with their launches (phases 4,
+     6, 7, 10, 11, 12 and 13) and times; K2's bound counts the function's
      least fp64 work a node, and the count its compiled loop issues
      (cuobjdump -sass) is printed beside it.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -89,6 +107,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -166,6 +185,78 @@ SP_GATE_SHMC_DIV = 1.5 * SP_JAX_SHMC_DIV
 # B and seed
 RG_B = 512
 RG_SEED = 0
+# the Inverter phase: one noisy ZARC spectrum of the main path's grid
+# (N=81); the ridge option families of Inverter.ridge_fit, each held in
+# float64 card vs CPU (coefficients within 1e-8 of the largest; 1e-7 with
+# the hyper-a update, whose golden-section search resolves a only to
+# ~sqrt(eps)); the batched ridge's default CV grid, its gates (of Rp) and
+# parity spectra; the forced single-parallel escalation's spectra and cut
+# budget; the NUTS md10 fit's budget cut from the default 2 x (200+200);
+# both sampled fits run non-centered (ncp), as the JAX package's Inverter
+# recommends for mixing
+INV_SEED = 13
+INV_TOL = 1e-8
+INV_TOL_HYPER_A = 1e-7
+# float64 parity of the Re-Im CV runs on the default grid's values from
+# 1e-7: in float64 the QPs of the smallest lambdas pivot to their
+# 2,000-iteration cap (about 70 s a spectrum on the CPU side)
+INV_CV_PARITY_GRID = np.logspace(-7, 5, 25)
+INV_RIDGE_CASES = {
+    "default": {}, "huang": dict(preset="Huang"),
+    "ciucci_cv": dict(preset="Ciucci", cv_lambdas=INV_CV_PARITY_GRID),
+    "part_real": dict(part="real"), "part_imag": dict(part="imag"),
+    "L1": dict(L1_penalty=0.1), "dZ": dict(dZ=True),
+    "hyper_a_b": dict(hyper_a=True, hyper_b=True),
+    "lm": dict(hl_solution="lm"),
+    "hyper_weights": dict(hyper_lambda=False, hyper_weights=True),
+    "ordinary": dict(hyper_lambda=False, lambda_0=0.1),
+    "x0": dict(x0=np.full(103, 0.01)), "cholesky": dict(penalty="cholesky"),
+    "no_inductance": dict(fit_inductance=False)}
+INV_CV_GRID = np.logspace(-10, 5, 31)
+INV_GATE_RMSE = 0.03
+INV_GATE_P90 = 0.08
+# the CV fit's gates: in float32 the CV curve is flat below lambda ~1e-6
+# and its selections there are noise in both packages (on the CPU their
+# curves agree within 1.1% above it, and 47 of the first 64 spectra
+# select the same lambda; scripts/jax_ridge_cv_reference.py --port 64).
+# The JAX package's own float32 CV on the same 1024 spectra (on the CPU,
+# scripts/jax_ridge_cv_reference.py 1024) misses the 3% and 8% bars of
+# the other ridge fits; the bars are 1.15x its figures
+INV_JAX_CV = {"rmse_over_rp": 0.05187158297986887,
+              "p90_over_rp": 0.12908255622976486, "boundary_low": 40}
+INV_GATE_CV_RMSE = 1.15 * INV_JAX_CV["rmse_over_rp"]
+INV_GATE_CV_P90 = 1.15 * INV_JAX_CV["p90_over_rp"]
+# the box QP's graphed tail against its eager loop: the CV's first QP on
+# 2 spectra at lambdas 1e-10 to 1e-8 in float64, whose rows all pivot to
+# the iteration cap. The graph pads its batch (10 rows to 16) and the
+# batched float64 solves of these ill-conditioned systems round apart at
+# different batch sizes: the same final active sets give x 3.9e-10 apart
+# (H100 80GB HBM3, 700 W), so x is held within 1e-8 of the largest, and
+# the replays bit for bit to the same steps run eagerly
+INV_QP_B = 2
+INV_QP_GRID = np.logspace(-10, -8, 5)
+INV_QP_TOL = 1e-8
+INV_PARITY_B = 8
+# the forced single-parallel escalation at 4 x (100+100): the JAX
+# package's own median Z residual on these 16 spectra reads 0.0347 at
+# 4 x (50+50), over the 0.02 bar, and 0.0155 at 4 x (100+100) (float32
+# on the CPU, scripts/jax_escalation_reference.py)
+INV_ESC_B = 16
+INV_ESC_WARMUP = 100
+INV_ESC_SAMPLES = 100
+INV_JAX_ESC_RESID = 0.015545151922947986
+INV_NUTS_WARMUP = 30
+INV_NUTS_SAMPLES = 20
+# the mixing gates of the JAX package's Inverter test (rhat_max < 5,
+# ess_min > 2 at its 2 x (120+120)): one NUTS md10 fit at that budget is
+# gated on both; at the cut budget the JAX package's own fits of this
+# spectrum read rhat_max 35 to 74 and ess_min 2.01 to 2.11 (float64 on the
+# CPU, scripts/jax_inverter_reference.py), so there ess_min is gated and
+# rhat_max printed
+INV_NUTS_TEST_WARMUP = 120
+INV_NUTS_TEST_SAMPLES = 120
+INV_GATE_RHAT_MAX = 5.0
+INV_GATE_ESS_MIN = 2.0
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -1944,6 +2035,465 @@ def ragged_parity(card, failed):
           f"at {100 * bound_ms / ms:.1f}% of it [{card}]")
 
 
+def inverter_gamma(inv, tau_gt, rp):
+    """gamma RMSE of an Inverter fit against the ZARC truth, of Rp."""
+    from bayes_drt_tpu_torch import sim
+    g = inv.predict_distribution(eval_tau=tau_gt)
+    return float(np.sqrt(np.mean((g - sim.zarc_drt(tau_gt, 1e-3, 0.8))
+                                 ** 2)) / rp)
+
+
+def inverter_ridge_options(card, freq, z, tau_gt, rp, failed):
+    """(a) Inverter.ridge_fit on the card for each option family, each held
+    in float64 to the same fit on the CPU (coefficients within INV_TOL of
+    the largest; INV_TOL_HYPER_A with the hyper-a update; the phase-offset
+    search to its stopping rule), its seconds printed; the default fit in
+    the default float32 gated as the JAX package's ridge quick-start."""
+    import torch
+    from bayes_drt_tpu_torch import Inverter, sim
+    ie = np.repeat([0, 1, 2], [27, 27, 27])
+    off = np.where(ie == 1, 2.0, np.where(ie == 2, -1.5, 0.0))
+    z_off = np.abs(z) * np.exp(1j * np.radians(np.angle(z, deg=True) + off))
+    bp = {"DDT": {"kernel": "DDT", "bc": "blocking",
+                  "basis_freq": np.logspace(6, -3, 91)}}
+    z_bp = sim.noisy_replicas(
+        1 + sim.z_ddt_cole_cole(freq, 0.1, 0.8, bc="blocking"), 1, 0.0025,
+        SP_SEED + 1)[0]
+    cases = {name: (None, z, kw) for name, kw in INV_RIDGE_CASES.items()}
+    cases["phase_offset"] = (None, z_off, dict(correct_phase_offset=True,
+                                               IERange=ie))
+    cases["blocking_ddt_admittance"] = (bp, z_bp, dict(
+        penalty="integral", lambda_0=1.0, hl_beta=5, weights="modulus"))
+    out = {}
+    for name, (dists, z_in, kw) in cases.items():
+        kw = dict(kw)
+        fi = kw.pop("fit_inductance", True)
+        fits = {}
+        for dev in ("cuda", "cpu"):
+            inv = Inverter(distributions=dists, fit_inductance=fi,
+                           device=dev, dtype=torch.float64)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inv.ridge_fit(freq, z_in, **kw)
+                torch.cuda.synchronize()
+            fits[dev] = (inv, time.perf_counter() - t0)
+        (g, t_card), (w, t_cpu) = fits["cuda"], fits["cpu"]
+        nm = list(g.distribution_fits)[0]
+        cg, cw = g.distribution_fits[nm]["coef"], w.distribution_fits[nm][
+            "coef"]
+        err = float(np.abs(cg - cw).max() / np.abs(cw).max())
+        tol = INV_TOL_HYPER_A if kw.get("hyper_a") else INV_TOL
+        ok = err <= tol and abs(g.R_inf - w.R_inf) <= tol * np.abs(cw).max()
+        if name == "phase_offset":
+            # the alternation stops at xtol = 1e-3 degrees, scipy's BFGS at
+            # an L1 kink: held to the stopping rule
+            tol = 1e-2
+            ok = bool(np.abs(g.phase_offsets - w.phase_offsets).max()
+                      <= tol and err <= tol)
+        out[name] = {"card_s": t_card, "cpu_s": t_cpu, "coef_err": err,
+                     "tol": tol}
+        if not ok:
+            failed.append(f"ridge.{name}")
+    # the default call: float32 on the card
+    inv = Inverter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inv.ridge_fit(freq, z)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    zhat = inv.predict_Z(freq)
+    fig = {"card_s": wall, "rmse_over_rp": inverter_gamma(inv, tau_gt, rp),
+           "z_resid_median": float(np.median(np.abs(zhat - z) / np.abs(z))),
+           "r2": inv.score(freq, z, metric="r2")}
+    gates = {"rmse": fig["rmse_over_rp"] < 0.05,
+             "z_resid": fig["z_resid_median"] < 0.02, "r2": fig["r2"] > 0.99}
+    fig["gates"] = gates
+    out["default_float32"] = fig
+    failed += [f"ridge.default.{k}" for k, v in gates.items() if not v]
+    print("inverter ridge options (card float64 vs CPU float64): "
+          + json.dumps(out) + f" [{card}]")
+
+
+def inverter_batch_ridge(card, failed):
+    """(b) ridge_fit_spectra_batch on the main path's 1024 spectra with the
+    Re-Im cross-validation over the default 31-lambda grid and with the
+    hyper-weights ridge (float32), gated on batch-mean RMSE and p90 (the
+    CV fit against the JAX package's own CV figures); then float64
+    card-vs-CPU parity of both on 8 spectra (the CV over
+    INV_CV_PARITY_GRID)."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.parallel import ridge_fit_spectra_batch
+    freq, zb = sim.make_benchmark_batch(B, circuit="ZARC",
+                                        noise_level=0.0025, seed=0)
+    modes = {"cv": dict(cv_lambdas=INV_CV_GRID),
+             "hyper_weights": dict(hyper_lambda=False, hyper_weights=True)}
+    parity = dict(modes, cv=dict(cv_lambdas=INV_CV_PARITY_GRID))
+    out = {}
+    for name, kw in modes.items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ridge_fit_spectra_batch(freq, zb, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        gt = sim.reference_gamma("ZARC", res.tau)
+        rmse, p90 = map_figures(res, res.tau, gt,
+                                np.trapezoid(gt, np.log(res.tau)))
+        rec = {"B": B, "wall_s": wall, "rmse_over_rp": rmse,
+               "p90_over_rp": p90,
+               "finite": bool(np.isfinite(res.coef).all())}
+        if name == "cv":
+            # the figures of scripts/jax_ridge_cv_reference.py: over the
+            # 1024 and over the first 16
+            lam = res.diagnostics["cv_lambda"]
+            grid = np.asarray(INV_CV_GRID, np.float32)
+            rec["first16"] = dict(zip(("rmse_over_rp", "p90_over_rp"),
+                                      map_figures(
+                                          res._replace(coef=res.coef[:16]),
+                                          res.tau, gt, np.trapezoid(
+                                              gt, np.log(res.tau)))))
+            rec["boundary_low"] = int(np.sum(lam == grid[0]))
+            rec["boundary_high"] = int(np.sum(lam == grid[-1]))
+            rec["cv_lambda_median"] = float(np.median(lam))
+            rec["jax_cpu"] = INV_JAX_CV
+            rec["warnings"] = [str(w.message) for w in caught]
+        bars = ((INV_GATE_CV_RMSE, INV_GATE_CV_P90) if name == "cv"
+                else (INV_GATE_RMSE, INV_GATE_P90))
+        gates = {"finite": rec["finite"], "rmse": rmse < bars[0],
+                 "p90": p90 < bars[1]}
+        rec["bars"] = bars
+        rec["gates"] = gates
+        out[name] = rec
+        failed += [f"batch_ridge.{name}.{k}" for k, v in gates.items()
+                   if not v]
+    # float64 parity on 8 spectra
+    for name, kw in parity.items():
+        got = ridge_fit_spectra_batch(freq, zb[:INV_PARITY_B],
+                                      dtype=torch.float64, **kw)
+        want = ridge_fit_spectra_batch(freq, zb[:INV_PARITY_B],
+                                       dtype=torch.float64, device="cpu",
+                                       **kw)
+        err = float(np.abs(got.coef - want.coef).max()
+                    / np.abs(want.coef).max())
+        rec = {"coef_err": err}
+        ok = err <= INV_TOL
+        if name == "cv":
+            same = bool(np.array_equal(got.diagnostics["cv_lambda"],
+                                       want.diagnostics["cv_lambda"]))
+            rec["cv_index_equal"] = same
+            ok = ok and same
+        else:
+            w_err = float(np.abs(got.diagnostics["weights_re"]
+                                 - want.diagnostics["weights_re"]).max()
+                          / np.abs(want.diagnostics["weights_re"]).max())
+            rec["weights_err"] = w_err
+            ok = ok and w_err <= INV_TOL
+        out[name]["parity_f64"] = rec
+        if not ok:
+            failed.append(f"batch_ridge.{name}.parity")
+    print("inverter batched ridge: " + json.dumps(out) + f" [{card}]")
+
+
+def inverter_qp_tail(card, failed):
+    """(b) The box QP's CUDA-graph tail against its eager loop: the first
+    QP of the Re-Im CV on the main path's first INV_QP_B spectra over
+    INV_QP_GRID in float64 on the card, whose rows all pivot to their
+    iteration cap, solved again with the tail graphed (the default past
+    nnls._QP_GRAPH_AFTER iterations) and eagerly (_QP_GRAPH_AFTER past
+    the cap): equal iteration counts and final active sets, x within
+    INV_QP_TOL of the largest; and the graph's replays bit for bit the
+    tail's own steps run eagerly from the state the tail was handed; the
+    seconds of both solves."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer import nnls, ridge
+    from bayes_drt_tpu_torch.parallel import ridge_fit_spectra_batch
+    freq, zb = sim.make_benchmark_batch(B, circuit="ZARC",
+                                        noise_level=0.0025, seed=0)
+    solve = ridge.solve_qp_box
+    seen = []
+
+    class Cycling(Exception):
+        pass
+
+    def spy(P, q, lb, ub, max_iter=100, tol=1e-10, warm_sets=None):
+        res = solve(P, q, lb, ub, max_iter=max_iter, tol=tol,
+                    warm_sets=warm_sets)
+        if int(res.n_iter.max()) > nnls._QP_GRAPH_AFTER:
+            seen.append((P, q, lb, ub, max_iter, tol, warm_sets))
+            raise Cycling
+        return res
+
+    ridge.solve_qp_box = spy
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ridge_fit_spectra_batch(freq, zb[:INV_QP_B],
+                                    cv_lambdas=INV_QP_GRID,
+                                    dtype=torch.float64)
+    except Cycling:
+        pass
+    finally:
+        ridge.solve_qp_box = solve
+    if not seen:
+        failed.append("qp_tail.no_cycling_rows")
+        return
+    P, q, lb, ub, max_iter, tol, warm = seen[0]
+    tails = []
+    graphed_tail = nnls._graphed_tail
+
+    def tail_spy(*args):
+        out = graphed_tail(*args)
+        tails.append((args[:-1], nnls._PivotState(
+            *(t.clone() for t in args[-1])), out))
+        return out
+
+    def run(args, warm_sets):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = nnls.solve_qp_box(*args, max_iter=max_iter, tol=tol,
+                              warm_sets=warm_sets)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    nnls._graphed_tail = tail_spy
+    try:
+        graphed, t_graphed = run((P, q, lb, ub), warm)
+    finally:
+        nnls._graphed_tail = graphed_tail
+    after = nnls._QP_GRAPH_AFTER
+    nnls._QP_GRAPH_AFTER = max_iter + 1
+    try:
+        eager, t_eager = run((P, q, lb, ub), warm)
+    finally:
+        nnls._QP_GRAPH_AFTER = after
+    # the tail's own steps run eagerly from the state it was handed
+    args, sub, out = tails[0]
+    n, st, step = nnls._padded_tail(*args, sub)
+    while bool(((st.it[:n] < max_iter) & ~st.done[:n]).any()):
+        step()
+    tail_bitwise = all(bool(torch.equal(a, b[:n])) for a, b in zip(out, st))
+
+    def same(a, b):
+        return bool(torch.equal(a.n_iter, b.n_iter)
+                    and torch.equal(a.at_lb, b.at_lb)
+                    and torch.equal(a.at_ub, b.at_ub))
+
+    err = float((graphed.x - eager.x).abs().max() / eager.x.abs().max())
+    gates = {"n_iter_and_sets": same(graphed, eager),
+             "x": err <= INV_QP_TOL, "tail_replay_bitwise": tail_bitwise}
+    rec = {"rows": int(q.shape[0]), "tail_rows": int(sub.x.shape[0]),
+           "tail_padded_rows": int(st.x.shape[0]), "K": int(q.shape[1]),
+           "max_iter": max_iter, "tail_start_iter": int(sub.it.min()),
+           "n_iter_max": int(eager.n_iter.max()), "x_err": err,
+           "graphed_s": t_graphed, "eager_s": t_eager, "gates": gates}
+    print("inverter QP tail (float64, graphed vs eager): "
+          + json.dumps(rec) + f" [{card}]")
+    failed += [f"qp_tail.{k}" for k, v in gates.items() if not v]
+
+
+def inverter_parallel_escalation(card, failed):
+    """(c) The repaired fault: phase 11's single parallel blocking-DDT
+    spectra (INV_ESC_B of them) through fit_spectra_batch's default
+    escalation with sampler='shmc' at a cut budget, the gate forced to
+    flag every spectrum, so each is refitted by NUTS md8 from the
+    Inverter's admittance ridge seed (run on the card); gated on finite
+    coefficients, every row spliced and the median Z residual."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.parallel import batch, predict_Z_batch
+    freq = np.logspace(6, -2, 81)
+    bp = {"DDT": {"kernel": "DDT", "symmetry": "planar", "bc": "blocking",
+                  "dist_type": "parallel",
+                  "basis_freq": np.logspace(6, -3, 91)}}
+    z_bp = 1 + sim.z_ddt_cole_cole(freq, 0.1, 0.8, bc="blocking")
+    zb = sim.noisy_replicas(z_bp, SP_B_SMALL, 0.0025,
+                            SP_SEED + 1)[:INV_ESC_B]
+    print(f"inverter escalation: B={INV_ESC_B} of phase 11's blocking-DDT "
+          f"spectra, budget cut to {CHAINS}x({INV_ESC_WARMUP}+"
+          f"{INV_ESC_SAMPLES}) from the default {CHAINS}x(500+500) "
+          f"[{card}]")
+    seen = {}
+    splice = batch._splice_results
+
+    def spy(result, sub, mask):
+        seen.update(sub=sub, mask=mask)
+        return splice(result, sub, mask)
+
+    batch._splice_results = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res = batch.fit_spectra_batch(
+                freq, zb, distributions=bp, sampler="shmc", chains=CHAINS,
+                warmup=INV_ESC_WARMUP, samples=INV_ESC_SAMPLES,
+                random_seed=3, escalate_gate=dict(ess_bulk_min=np.inf),
+                timing=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        batch._splice_results = splice
+    sub = seen["sub"]
+    zhat = predict_Z_batch(res, freq)
+    resid = float(np.median(np.abs(zhat - z_bp[None, :])
+                            / np.abs(z_bp)[None, :]))
+    spliced = bool(seen["mask"].all() and res.diagnostics["escalated"].all()
+                   and np.array_equal(res.coef, sub.coef))
+    gates = {"finite": bool(np.isfinite(res.coef).all()
+                            and np.isfinite(zhat).all()),
+             "spliced": spliced, "z_resid": resid <= SP_GATE_Z}
+    draw_s = np.asarray(sub.diagnostics["draw_s"])
+    rec = {"B": INV_ESC_B, "budget": [CHAINS, INV_ESC_WARMUP,
+                                      INV_ESC_SAMPLES],
+           "wall_s": wall, "refit_s": res.diagnostics["refit_s"],
+           "ridge_seed_s": sub.diagnostics["phase_s"]["ridge"],
+           "refit_phase_s": sub.diagnostics["phase_s"],
+           "nuts_first_draw_s": float(draw_s[0]),
+           "nuts_draw_s_median": float(np.median(draw_s[1:])),
+           "z_resid_median": resid, "jax_cpu_z_resid_median":
+               INV_JAX_ESC_RESID, "gates": gates}
+    print("inverter escalation: " + json.dumps(rec) + f" [{card}]")
+    failed += [f"escalation.{k}" for k, v in gates.items() if not v]
+
+
+def inverter_fits(card, freq, z, tau_gt, rp, failed):
+    """(d) Inverter.fit on the card (float32): the default MAP (2
+    restarts, cap 4000, polish) twice on two same-shape spectra, NUTS
+    md10 at a cut budget twice and once at the JAX package's Inverter
+    test budget, SHMC at the default budget (both samplers non-centered);
+    each gated as the JAX package's Inverter tests gate them (ess_min >
+    INV_GATE_ESS_MIN; rhat_max < INV_GATE_RHAT_MAX at the test budget);
+    check_outliers on a corrupted point; a save/load round trip through
+    pickle predicting the same Z bit for bit."""
+    import pickle
+    from bayes_drt_tpu_torch import Inverter, sim
+    _, zb2 = sim.make_benchmark_batch(2, circuit="ZARC", noise_level=0.0025,
+                                      seed=INV_SEED + 1)
+    print(f"inverter fits: NUTS md10 budget cut to 2x({INV_NUTS_WARMUP}+"
+          f"{INV_NUTS_SAMPLES}) and, once, to the JAX package's Inverter "
+          f"test budget 2x({INV_NUTS_TEST_WARMUP}+{INV_NUTS_TEST_SAMPLES}),"
+          f" from 2x(200+200); SHMC at the default 2x(200+200) [{card}]")
+    out = {}
+    runs = (("map", z, {}), ("map_second", zb2[0], {}),
+            ("nuts", z, dict(mode="sample", warmup=INV_NUTS_WARMUP,
+                             samples=INV_NUTS_SAMPLES, ncp=True)),
+            ("nuts_second", zb2[0], dict(mode="sample",
+                                         warmup=INV_NUTS_WARMUP,
+                                         samples=INV_NUTS_SAMPLES,
+                                         ncp=True)),
+            ("nuts_test_budget", z, dict(mode="sample",
+                                         warmup=INV_NUTS_TEST_WARMUP,
+                                         samples=INV_NUTS_TEST_SAMPLES,
+                                         ncp=True)),
+            ("shmc", z, dict(mode="sample", sampler="shmc", ncp=True)))
+    fits = {}
+    for name, z_in, kw in runs:
+        inv = Inverter()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            inv.fit(freq, z_in, **kw)
+        wall = time.perf_counter() - t0
+        fits[name] = inv
+        rec = {"wall_s": wall, "stages_s": inv.timings.summary(),
+               "rmse_over_rp": inverter_gamma(inv, tau_gt, rp),
+               "R_inf": inv.R_inf}
+        gates = {"rmse": rec["rmse_over_rp"] < 0.08,
+                 "R_inf": abs(inv.R_inf - 1.0) < 0.05}
+        if inv.fit_type == "map":
+            m = inv._map_result
+            rec.update(polish_iters=int(m.n_iter) - inv._map_n_iter_lbfgs,
+                       lbfgs_iters=inv._map_n_iter_lbfgs,
+                       converged=bool(m.converged),
+                       grad_norm=float(m.grad_norm))
+        else:
+            sd = inv.sample_diagnostics
+            draw_s = np.asarray(sd["draw_s"])
+            lo = inv.predict_distribution(eval_tau=tau_gt, percentile=2.5)
+            hi = inv.predict_distribution(eval_tau=tau_gt, percentile=97.5)
+            gates["bands_ordered"] = bool(np.all(hi >= lo - 1e-12))
+            rec.update(first_draw_s=float(draw_s[0]),
+                       draw_s_median=float(np.median(draw_s[1:])),
+                       capture_s=sd["capture_s"],
+                       rhat_max=sd["rhat_max"], ess_min=sd["ess_min"],
+                       divergence_rate=sd["divergence_rate"],
+                       n_leapfrog=sd["n_leapfrog"])
+            gates["ess_min"] = sd["ess_min"] > INV_GATE_ESS_MIN
+            if name == "nuts_test_budget":
+                gates["rhat_max"] = sd["rhat_max"] < INV_GATE_RHAT_MAX
+        rec["gates"] = {k: bool(v) for k, v in gates.items()}
+        out[name] = rec
+        failed += [f"fit.{name}.{k}" for k, v in gates.items() if not v]
+    # check_outliers on the card: the JAX package's test corrupts index 25
+    zc = z.copy()
+    zc[25] *= 1.0 + 0.5j
+    idx = Inverter().check_outliers(freq, zc, threshold=3.5)
+    out["check_outliers"] = {"flagged": idx.ravel().tolist()}
+    if 25 not in set(idx.ravel()):
+        failed.append("check_outliers")
+    # save/load round trip through pickle
+    inv = fits["map"]
+    restored = Inverter()
+    restored.load_fit_data(pickle.loads(pickle.dumps(inv.save_fit_data())))
+    same = bool(np.array_equal(restored.predict_Z(freq), inv.predict_Z(freq))
+                and np.array_equal(restored.predict_sigma(freq)[0],
+                                   inv.predict_sigma(freq)[0]))
+    out["save_load_bitwise"] = same
+    if not same:
+        failed.append("save_load")
+    print("inverter fits: " + json.dumps(out) + f" [{card}]")
+
+
+def phase_inverter(card):
+    """The Inverter (phase 13): (a) ridge options, (b) the batched ridge's
+    CV and hyper-weights modes, (c) the single-parallel ridge seed through
+    the default escalation, (d) MAP and sampled fits, outliers and
+    save/load. Returns the kernels' launches on its driven paths (K2 in
+    every DRT A that the Inverter and the batched ridge build on the card;
+    no K1: the Inverter samples with the generic samplers)."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    freq, zb = sim.make_benchmark_batch(1, circuit="ZARC",
+                                        noise_level=0.0025, seed=INV_SEED)
+    z = zb[0]
+    tau_gt = np.logspace(-7, 2, 200)
+    rp = float(np.trapezoid(sim.zarc_drt(np.logspace(-9, 4, 2000), 1e-3,
+                                         0.8), np.log(np.logspace(-9, 4,
+                                                                  2000))))
+    failed = []
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    t0 = time.perf_counter()
+    inverter_ridge_options(card, freq, z, tau_gt, rp, failed)
+    t_a = time.perf_counter()
+    inverter_batch_ridge(card, failed)
+    inverter_qp_tail(card, failed)
+    t_b = time.perf_counter()
+    inverter_parallel_escalation(card, failed)
+    t_c = time.perf_counter()
+    inverter_fits(card, freq, z, tau_gt, rp, failed)
+    t_d = time.perf_counter()
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    print("inverter phase: " + json.dumps({
+        "seconds": {"ridge_options": t_a - t0, "batch_ridge": t_b - t_a,
+                    "escalation": t_c - t_b, "fits": t_d - t_c,
+                    "total": t_d - t0},
+        "launches": launches}) + f" [{card}]")
+    if launches["quad"] == 0 or launches["traj"] != 0:
+        failed.append("launches")
+    if failed:
+        raise AssertionError(f"inverter phase failed: {failed}")
+    return launches
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1974,8 +2524,9 @@ def main(argv):
     phase_map_parity(card)
     sp = phase_multidist(card)
     gr = phase_generic(card, state)
+    inv = phase_inverter(card)
     launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] + sp[k] + gr[k]
-                for k in launches}
+                + inv[k] for k in launches}
     kernels = [
         dict(name="drt_quad", route="cuda",
              source="bayes_drt_tpu_torch/csrc/quad.cu",

@@ -24,6 +24,7 @@ from bayes_drt_tpu_torch.infer.shmc_flat import (flat_shared_for,
                                                  flat_value_and_grad)
 from bayes_drt_tpu_torch.models.posterior import log_density, unravel
 from bayes_drt_tpu_torch.parallel import batch
+from parallel_seed_reference import jax_parallel_ridge_seed
 
 torch.set_num_threads(1)
 
@@ -494,12 +495,27 @@ def test_build_shared_options_match_jax(mode):
                                    float(getattr(data_j, name)), rtol=1e-15)
 
 
-def test_optimize_errors_and_options():
+def test_optimize_errors_and_options(monkeypatch):
     freq, Zb = _batch(1)
     ddt = {"DDT": {"kernel": "DDT", "bc": "transmissive"}}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        batch.fit_spectra_batch(freq, Zb, mode="optimize", distributions=ddt,
-                                init_from_ridge=True, device="cpu")
+    # a single parallel distribution's MAP from its ridge seed (the
+    # Inverter's admittance ridge, held to the JAX package's seed)
+    seeds = []
+    seed_fn = batch._ridge_seed
+
+    def spy(*args):
+        seeds.append(seed_fn(*args))
+        return seeds[-1]
+
+    monkeypatch.setattr(batch, "_ridge_seed", spy)
+    res = batch.fit_spectra_batch(freq, Zb, mode="optimize",
+                                  distributions=ddt, init_from_ridge=True,
+                                  max_iter=30, dtype=torch.float64,
+                                  device="cpu")
+    assert np.isfinite(res.coef).all() and (res.coef > 0).all()
+    for k, v in jax_parallel_ridge_seed(freq, Zb, ddt).items():
+        np.testing.assert_allclose(seeds[0][k][:1], v, rtol=1e-8,
+                                   atol=1e-8 * np.abs(v).max(), err_msg=k)
     with pytest.raises(NotImplementedError, match="item 10"):
         batch.fit_spectra_batch(freq, Zb, outliers=True, monitor_thin=2,
                                 device="cpu")

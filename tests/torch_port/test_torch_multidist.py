@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from jax.flatten_util import ravel_pytree
+from parallel_seed_reference import jax_parallel_ridge_seed
 from test_torch_nuts import jax_draw_noise
 
 from bayes_drt_tpu.infer import nuts as jax_nuts
@@ -548,7 +549,7 @@ def test_sample_fit_series_parallel_end_to_end():
     assert not np.array_equal(forced.diagnostics["coef_1"], d["coef_1"])
 
 
-def test_unported_options_raise_multidist():
+def test_unported_options_raise_multidist(monkeypatch):
     freq, Zb = _sp_batch(2)
     ddt = {"DDT": dict(TP, basis_freq=BASIS)}
     kw = dict(device="cpu", chains=2, warmup=4, samples=4)
@@ -563,16 +564,38 @@ def test_unported_options_raise_multidist():
     with pytest.raises(ValueError, match="single-distribution"):
         batch.fit_spectra_batch(freq, Zb, distributions=SP,
                                 init_from_ridge=True, **kw)
-    for mode in ("sample", "optimize"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            batch.fit_spectra_batch(freq, Zb, distributions=ddt, mode=mode,
-                                    init_from_ridge=True, **kw)
-    # the default escalation of a single parallel distribution would need
-    # the ridge seed: it raises before the fit; escalate=False runs
-    for esc in (None, True):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            batch.fit_spectra_batch(freq, Zb, distributions=ddt,
-                                    escalate=esc, **kw)
+    # a single parallel distribution's ridge seed is the Inverter's
+    # admittance ridge of each spectrum, held to the JAX package's seed; it
+    # seeds init_from_ridge in both modes and the default escalation's
+    # refit
+    seeds = []
+    seed_fn = batch._ridge_seed
+
+    def spy(*args):
+        seeds.append(seed_fn(*args))
+        return seeds[-1]
+
+    monkeypatch.setattr(batch, "_ridge_seed", spy)
+    want = jax_parallel_ridge_seed(freq, Zb, ddt)
+    runs = [dict(mode=mode, init_from_ridge=True, max_tree_depth=3,
+                 max_iter=30) for mode in ("sample", "optimize")]
+    runs += [dict(escalate=esc, escalate_gate=dict(ess_bulk_min=np.inf),
+                  escalate_kw=dict(max_tree_depth=3), max_tree_depth=3)
+             for esc in (None, True)]
+    for call in runs:
+        if call.get("mode") != "optimize":
+            call.pop("max_iter", None)
+        n_seen = len(seeds)
+        res = batch.fit_spectra_batch(freq, Zb, distributions=ddt, **call,
+                                      dtype=torch.float64, **kw)
+        assert len(seeds) == n_seen + 1, call
+        assert np.isfinite(res.coef).all() and (res.coef > 0).all()
+        if "escalate" in call:
+            assert res.diagnostics["escalated"].all()
+        for k, v in want.items():
+            np.testing.assert_allclose(seeds[-1][k][:len(Zb)], v, rtol=1e-8,
+                                       atol=1e-8 * np.abs(v).max(),
+                                       err_msg=f"{call} {k}")
     res = batch.fit_spectra_batch(freq, Zb, distributions=ddt,
                                   escalate=False, max_tree_depth=3, **kw)
     assert np.isfinite(res.coef).all() and (res.coef > 0).all()

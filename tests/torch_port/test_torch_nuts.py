@@ -3,8 +3,6 @@ key schedule's random numbers replayed (float64), whole samplers with
 replayed noise, the two tree forms, and the moments of a correlated
 Gaussian."""
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,39 +21,9 @@ from bayes_drt_tpu_torch.infer.shmc_flat import (flat_spec_for,
                                                  flat_value_and_grad)
 from bayes_drt_tpu_torch.models.posterior import init_unconstrained, ravel
 from bayes_drt_tpu_torch.parallel.batch import _ridge_init_values
+from jax_noise_reference import jax_draw_noise, jax_nuts_stream
 
 torch.set_num_threads(1)
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_noise_fn(dim, max_depth):
-    def one(k):
-        k_mom, key = jax.random.split(k)
-        z = jax.random.normal(k_mom, (dim,), jnp.float64)
-        dirs, swaps, leaves = [], [], []
-        for d in range(max_depth):
-            key, k_dir, k_sub, k_swap = jax.random.split(key, 4)
-            dirs.append(jax.random.bernoulli(k_dir))
-            swaps.append(jax.random.uniform(k_swap))
-            leaves += [jax.random.uniform(jax.random.fold_in(k_sub, i))
-                       for i in range(1 << d)]
-        return z, jnp.stack(dirs), jnp.stack(swaps), jnp.stack(leaves)
-
-    return jax.jit(jax.vmap(one))
-
-
-def jax_draw_noise(keys, dim, max_depth):
-    """The random numbers JAX's flat NUTS transition draws from each row's
-    key (nuts.py:449-451 momentum, :335-337 direction and subtree keys,
-    :360 leaf uniforms, :391 swap uniform), as a NUTSNoise."""
-    z, dirs, swaps, leaves = _jax_noise_fn(dim, max_depth)(keys)
-
-    def t(a):
-        return torch.as_tensor(np.array(a))
-
-    return nuts.NUTSNoise(z=t(z), go_right=t(dirs).T.contiguous(),
-                          swap_u=t(swaps).T.contiguous(),
-                          leaf_u=t(leaves).T.contiguous())
 
 
 @pytest.fixture(scope="module")
@@ -173,21 +141,7 @@ def test_sampler_replays_jax_noise():
         lambda x: -0.5 * x @ (prec_j @ x), qq, k, warmup=warmup,
         samples=samples, cfg=cfg_j))(jnp.asarray(q0), keys)
 
-    stream = []
-    step_keys = []
-    for k in keys:
-        k, k_eps = jax.random.split(k)
-        z0 = np.asarray(jax.random.normal(k_eps, (d,), jnp.float64))
-        ks = []
-        for _ in range(warmup + samples):
-            k, k_step = jax.random.split(k)
-            ks.append(k_step)
-        stream.append(z0)
-        step_keys.append(ks)
-    noise = [torch.as_tensor(np.stack(stream))]
-    for t in range(warmup + samples):
-        noise.append(jax_draw_noise(jnp.stack([ks[t] for ks in step_keys]),
-                                    d, md))
+    noise = jax_nuts_stream(keys, d, md, warmup + samples)
     draws, info = nuts.sample_nuts(
         vg, torch.as_tensor(q0), warmup, samples,
         nuts.NUTSConfig(max_depth=md, tree_scan=True),

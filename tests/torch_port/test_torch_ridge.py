@@ -178,18 +178,22 @@ def test_ridge_fit_spectra_batch_matches_jax(case):
 
 
 def test_ridge_unported_options_raise():
+    """The options that raised until the ridge options were ported now
+    run and match the JAX package (the cross-validation and hyper-weights
+    modes at 1e-8 of the largest coefficient; every HyperLambdaConfig
+    option is held in test_torch_ridge_options.py); combining
+    hyper_lambda with hyper_weights still raises."""
     freq, Zb = sim.make_benchmark_batch(2, freq=np.logspace(5, -1, 21))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ridge_fit_spectra_batch(freq, Zb, cv_lambdas=[0.1, 1.0],
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ridge_fit_spectra_batch(freq, Zb, hyper_lambda=False,
-                                hyper_weights=True, device="cpu")
+    for kw in (dict(cv_lambdas=[0.1, 1.0]),
+               dict(hyper_lambda=False, hyper_weights=True)):
+        got = ridge_fit_spectra_batch(freq, Zb, dtype=torch.float64,
+                                      device="cpu", **kw)
+        want = jax_ridge_batch(freq, Zb, dtype=jnp.float64, **kw)
+        np.testing.assert_allclose(got.coef, np.asarray(want.coef),
+                                   rtol=1e-8,
+                                   atol=1e-8 * np.abs(got.coef).max())
     with pytest.raises(ValueError, match="cannot be"):
         ridge_fit_spectra_batch(freq, Zb, hyper_weights=True, device="cpu")
     for name in ("use_dZ", "use_hyper_a", "use_hyper_b", "use_fbeta",
                  "use_lm"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ridge.HyperLambdaConfig(**{name: True}).validate()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ridge.run_hyper_weights()
+        assert getattr(ridge.HyperLambdaConfig(**{name: True}), name)

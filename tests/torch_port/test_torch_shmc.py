@@ -28,6 +28,8 @@ from bayes_drt_tpu_torch.models.posterior import (flat_dim,
                                                   posterior_value_and_grad)
 from bayes_drt_tpu_torch.ops.matrices import default_epsilon
 from bayes_drt_tpu_torch.parallel import batch
+from jax_noise_reference import jax_shmc_stream
+from parallel_seed_reference import jax_parallel_ridge_seed
 
 torch.set_num_threads(1)
 
@@ -73,33 +75,6 @@ def _posteriors(family):
     cfg, data = build.build_posterior(dists, mats, FREQ, zb[0],
                                       dtype=torch.float64, device="cpu", **kw)
     return cfg_j, data_j, cfg, data, np.concatenate([zb.real, zb.imag], 1)
-
-
-def _jax_noise(keys, dim, n_leaps):
-    """The random numbers JAX's sample_shmc draws from each spectrum's key
-    (chees.py:555,558-561 eps0 momenta per chain, :614-624 per draw), laid
-    out as the port's spectrum-major rows: eps0 normals (B*C, D), then per
-    draw (z (B*C, D), u_sel (n_leap, B*C))."""
-    z0, ks = [], []
-    for key in keys:
-        key, k_eps = jax.random.split(key)
-        z0.append(np.stack([np.asarray(jax.random.normal(k, (dim,),
-                                                         jnp.float64))
-                            for k in jax.random.split(k_eps, CHAINS)]))
-        ks.append(key)
-    out = [torch.as_tensor(np.concatenate(z0))]
-    for nl in n_leaps:
-        zs, us = [], []
-        for i, key in enumerate(ks):
-            key, k_mom, k_sel = jax.random.split(key, 3)
-            ks[i] = key
-            zs.append(np.asarray(jax.random.normal(k_mom, (CHAINS, dim),
-                                                   jnp.float64)))
-            us.append(np.asarray(jax.random.uniform(k_sel, (int(nl), CHAINS),
-                                                    jnp.float64)))
-        out.append((torch.as_tensor(np.concatenate(zs)),
-                    torch.as_tensor(np.concatenate(us, axis=1))))
-    return out
 
 
 # (family, recompute_grad, eps_quantile, warm): every family, both
@@ -148,7 +123,8 @@ def test_sample_shmc_replays_jax(family, recompute, eps_q, warm):
     draws_j, info_j = jax.jit(jax.vmap(run))(
         jnp.asarray(targets), jnp.asarray(q0), keys, jnp.asarray(metric),
         jnp.asarray(eps_init))
-    noise = _jax_noise(keys, dim, [2] * WARMUP + [3] * SAMPLES)
+    noise = jax_shmc_stream(keys, dim, CHAINS,
+                            [2] * WARMUP + [3] * SAMPLES)
     vg = posterior_value_and_grad(cfg, data, torch.as_tensor(
         np.repeat(targets, CHAINS, axis=0)))
     cfg_s = chees.SHMCConfig(n_steps=3, warm_steps=2, **WINDOWS,
@@ -317,11 +293,12 @@ def test_fast_preset_reaches_generic_sampler(monkeypatch):
     assert seen[0][4][0] == 8 * 4     # the batch padded to 8 spectra
 
 
-def test_shmc_raises():
+def test_shmc_raises(monkeypatch):
     """pallas_traj / flat_chain name the single series family on any other
     model (JAX's flat_spec_for ValueError); a single parallel distribution
-    still raises for the default escalation (item 11), not with
-    escalate=False."""
+    runs the default escalation, its NUTS refit seeded by the Inverter's
+    admittance ridge (held to the JAX package's seed at 1e-8), and runs
+    with escalate=False."""
     freq, zb = _sp_batch(1)
     for kw in (dict(pallas_traj=True), dict(flat_chain=True)):
         with pytest.raises(ValueError, match="single series"):
@@ -329,9 +306,26 @@ def test_shmc_raises():
                                     sampler="shmc",
                                     shmc_cfg=chees.SHMCConfig(**kw), **TINY)
     ddt = {"DDT": dict(TP, basis_freq=BASIS)}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        batch.fit_spectra_batch(freq, zb, distributions=ddt, sampler="shmc",
-                                **TINY)
+    seeds = []
+    seed_fn = batch._ridge_seed
+
+    def spy(*args):
+        seeds.append(seed_fn(*args))
+        return seeds[-1]
+
+    monkeypatch.setattr(batch, "_ridge_seed", spy)
+    res = batch.fit_spectra_batch(
+        freq, zb, distributions=ddt, sampler="shmc",
+        escalate_gate=dict(ess_bulk_min=np.inf),
+        escalate_kw=dict(max_tree_depth=3), dtype=torch.float64,
+        shmc_cfg=chees.SHMCConfig(n_steps=3, warm_steps=3), **TINY)
+    assert res.diagnostics["escalated"].all()
+    assert np.isfinite(res.coef).all()
+    want = jax_parallel_ridge_seed(freq, zb, ddt)
+    for k, v in want.items():
+        got = seeds[0][k][:len(zb)]
+        np.testing.assert_allclose(got, v, rtol=1e-8,
+                                   atol=1e-8 * np.abs(v).max(), err_msg=k)
     res = batch.fit_spectra_batch(
         freq, zb, distributions=ddt, sampler="shmc", escalate=False,
         shmc_cfg=chees.SHMCConfig(n_steps=3, warm_steps=3), **TINY)
