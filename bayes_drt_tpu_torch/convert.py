@@ -4,7 +4,9 @@ The two packages share the flat parameter layout and the posterior's
 fields, so a caller holding the JAX package's ``PosteriorConfig`` /
 ``PosteriorData`` / ``FlatShared`` and sampler state can hand them to the
 port unchanged: this module only converts arrays (anything ``np.asarray``
-accepts) to tensors. An Inverter's saved fit state crosses as numpy
+accepts) to tensors. So do a drift model's ``DriftConfig`` /
+``DriftData`` and its parameter dicts, which become the port's flat rows
+and back. An Inverter's saved fit state crosses as numpy
 (``inverter_state_from_numpy``). It imports nothing of the JAX package;
 the configuration is read by attribute.
 """
@@ -16,6 +18,8 @@ import torch
 
 from ._numerics import resolve_device, resolve_dtype
 from .infer.shmc_flat import FlatShared, make_flat_shared
+from .models.drift import (DriftConfig, DriftData, drift_param_shapes,
+                           ravel_drift, unravel_drift)
 from .models.posterior import DistConfig, PosteriorConfig, PosteriorData
 
 
@@ -68,6 +72,34 @@ def flat_state_from_numpy(q, inv_mass, step_size, dtype=None, device=None):
     dt = resolve_dtype(dtype)
     return tuple(_tensor(a, dt, dev).contiguous()
                  for a in (q, inv_mass, step_size))
+
+
+def drift_from_numpy(cfg, data, dtype=None, device=None):
+    """(DriftConfig, DriftData) of the port from the JAX package's drift
+    config and data (arrays as numpy or anything convertible)."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    dcfg = DriftConfig(drift_model=cfg.drift_model, dist_type=cfg.dist_type,
+                       nonneg=bool(cfg.nonneg), K=int(cfg.K))
+    return dcfg, DriftData(*(_tensor(getattr(data, f), dt, dev)
+                             for f in DriftData._fields))
+
+
+def drift_rows_from_numpy(cfg, params, dtype=None, device=None):
+    """Flat rows (..., D) of the port from a drift parameter dict of the
+    JAX package (unconstrained values by name, leading batch dims
+    allowed; the layout of its ravel_pytree)."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    return ravel_drift(cfg, {nm: _tensor(params[nm], dt, dev)
+                             for nm, _ in drift_param_shapes(cfg)})
+
+
+def drift_rows_to_numpy(cfg, rows):
+    """The inverse of drift_rows_from_numpy: flat rows (..., D) -> a drift
+    parameter dict of numpy arrays."""
+    return {nm: v.detach().cpu().numpy()
+            for nm, v in unravel_drift(cfg, torch.as_tensor(rows)).items()}
 
 
 def inverter_state_from_numpy(state):

@@ -11,9 +11,10 @@ error structure, the Stan-style results and diagnostics) holds numpy
 arrays and Python scalars only, so ``save_fit_data`` of either package
 loads into the other.
 
-Not ported yet (they raise, naming their ROADMAP item): the drift fits
-(item 11d), the peak fits (item 11c) and the plotting wrappers (with
-11c), and ``sampler='chees'`` (item 12).
+Drift fits (models/drift.py) and HN peak fits (peaks.py, the LM of
+infer/lsq.py) run on the Inverter's device too. Not ported yet (they
+raise, naming their ROADMAP item): the plotting wrappers (item 11f) and
+``sampler='chees'`` (item 12).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from copy import deepcopy
 import numpy as np
 import torch
 
+from . import peaks
 from ._numerics import resolve_device, resolve_dtype
 from .convert import inverter_state_from_numpy
 from .infer import diagnostics as mcmc_diagnostics
@@ -35,19 +37,22 @@ from .infer.ridge import (HyperLambdaConfig, RidgeData, run_hyper_lambda,
 from .infer.shmc_flat import (flat_eligible, flat_shared_for, flat_spec_for,
                               flat_value_and_grad)
 from .models.build import build_posterior, sort_distributions, z_scale_for
+from .models.drift import (DRIFT_MODELS, DriftConfig, constrain_drift,
+                           drift_log_density, drift_value_and_grad,
+                           init_drift_params, predict_drift_target,
+                           ravel_drift, unravel_drift)
 from .models.posterior import (PosteriorData, constrain, init_unconstrained,
                                posterior_value_and_grad, predict_target,
                                ravel, sigma_tot, unravel)
 from .ops.basis import get_basis_func
 from .ops.matrices import (construct_A, construct_L, construct_M,
                            default_epsilon, get_tau_basis)
-from .parallel.batch import MapObjective, _format_weights_batch
+from .parallel.batch import (MapObjective, _format_weights_batch, drift_data,
+                             drift_pick)
 from .profiling import StageTimer
 from .utils import check_equality, get_outlier_thresh, r2_score, rel_round
 
-_ITEM_11C = "is not ported yet (ROADMAP Queue 1 item 11c: peaks)"
-_ITEM_11D = "is not ported yet (ROADMAP Queue 1 item 11d: drift)"
-_PLOTS = ("is not ported yet (ROADMAP Queue 1 item 11c: the plotting "
+_PLOTS = ("is not ported yet (ROADMAP Queue 1 item 11f: the plotting "
           "wrappers need matplotlib and pandas)")
 
 
@@ -1042,14 +1047,309 @@ class Inverter:
                 "biased. Consider increasing adapt_delta.")
         self.fit_type = "bayes"
 
-    def drift_map_fit(self, *args, **kwargs):
-        raise NotImplementedError("drift_map_fit " + _ITEM_11D)
+    # =====================================================================
+    # Drift fits
+    # =====================================================================
 
-    def predict_Z_drift(self, *args, **kwargs):
-        raise NotImplementedError("predict_Z_drift " + _ITEM_11D)
+    def drift_map_fit(self, frequencies, Z, times, drift_model="x1",
+                      part="both", scale_Z=True, nonneg=False,
+                      sigma_min=0.002, max_iter=4000, random_seed=1234,
+                      inductance_scale=1.0, n_restarts=2,
+                      min_tau_drift=200.0, max_tau_drift=10000.0,
+                      polish=True):
+        """MAP fit of a time-evolving spectrum (the reference's drift
+        models x1/x2/dx/dx-lin/RQ/RQ-lin/RQ-from-final/RQ-lin-from-final,
+        models/drift.py). ``times``: measurement time of each frequency
+        point (same length as frequencies, seconds); measurement order is
+        kept.
 
-    def predict_distribution_drift(self, *args, **kwargs):
-        raise NotImplementedError("predict_distribution_drift " + _ITEM_11D)
+        The static coefficients, R_inf and the inductance are seeded from
+        a hyper-lambda ridge fit of the whole spectrum (a ridge that fails
+        numerically warns and leaves the seeded start at random values;
+        no other error is caught). The seeded start and ``n_restarts``
+        random starts run as one batch of rows through L-BFGS; the best
+        finite row (the seeded one on ties) is polished by the damped
+        Newton pass (``polish``). ``part`` is accepted and unused, as in
+        the JAX package."""
+        if drift_model not in DRIFT_MODELS:
+            raise ValueError(f"Invalid drift_model {drift_model!r}. Options "
+                             f"are {DRIFT_MODELS}")
+        if len(self.distributions) > 1:
+            raise ValueError("drift_map_fit supports a single distribution")
+        times = np.asarray(times, float)
+        if len(times) != len(frequencies):
+            raise ValueError("times must have same length as frequencies")
+        self.timings = StageTimer(self._device)
+
+        # keep measurement order aligned with times
+        frequencies = np.asarray(frequencies, float)
+        Z = np.asarray(Z)
+        self.f_train = frequencies
+        self.Z_train = Z
+        self.t_train = times
+        if scale_Z:
+            Z_scaled = self._scale_Z(Z, "map")
+        else:
+            self._Z_scale = 1.0
+            Z_scaled = Z
+
+        dist_name = list(self.distributions.keys())[0]
+        info = self.distributions[dist_name]
+        dist_type = info["dist_type"]
+        tau, eps = self._dist_tau_epsilon(dist_name, frequencies)
+        self.distributions[dist_name]["tau"] = tau
+        self.distributions[dist_name]["epsilon"] = eps
+        A_re, A_im = self._dist_A(frequencies, info, tau, eps)
+        self.distribution_matrices[dist_name].update(A_re=A_re, A_im=A_im)
+        f_coll = 1.0 / (2 * np.pi * tau)
+        L = np.stack([1.5 * s * self._matrix(construct_L, f_coll, tau=tau,
+                                             basis=self.basis, epsilon=eps,
+                                             order=o)
+                      for o, s in ((0, 0.24), (1, 0.16), (2, 0.08))])
+        cfg = DriftConfig(drift_model=drift_model, dist_type=dist_type,
+                          nonneg=nonneg, K=len(tau))
+        data = drift_data(frequencies, times, A_re, A_im, L,
+                          np.concatenate([Z_scaled.real, Z_scaled.imag]),
+                          tau, sigma_min, inductance_scale, min_tau_drift,
+                          max_tau_drift, self._dtype, self._device)
+
+        with self.timings.stage("ridge_init"):
+            ridge_init = self._drift_ridge_init(frequencies, Z, nonneg,
+                                                dist_name)
+        # restore the state the internal ridge fit replaced (it sorts the
+        # frequencies and rebuilds the cached matrices)
+        self.f_train = frequencies
+        self.Z_train = Z
+        self.t_train = times
+        self.distribution_matrices[dist_name].update(A_re=A_re, A_im=A_im)
+        self.f_pred = None
+
+        gen = torch.Generator(device=self._device).manual_seed(
+            int(random_seed))
+        q0 = ravel_drift(cfg, init_drift_params(
+            cfg, data, gen, batch_shape=(1,), init_values=ridge_init))
+        if n_restarts > 0:
+            q0 = torch.cat([q0, ravel_drift(cfg, init_drift_params(
+                cfg, data, gen, batch_shape=(1, n_restarts)))[0]])
+        vg = drift_value_and_grad(cfg, data)
+
+        def value_and_grad(q, rows=None):
+            lp, g = vg(q)
+            return -lp, -g
+
+        def loss_row(q_row):
+            return -drift_log_density(cfg, data, unravel_drift(cfg, q_row))
+
+        def hessian(q, rows=None):
+            return torch.func.vmap(torch.func.jacrev(torch.func.jacrev(
+                loss_row)))(q)
+
+        with self.timings.stage("lbfgs"):
+            res = run_lbfgs(value_and_grad, q0, max_iter=max_iter)
+            pick = drift_pick(res.value[None])
+            res = MapResult(*(a[pick] for a in res))
+        n_lbfgs = int(res.n_iter[0])
+        if polish:
+            # certify the winning basin's optimum
+            with self.timings.stage("polish"):
+                pol = newton_polish(value_and_grad, hessian, res.params)
+            res = pol._replace(n_iter=res.n_iter + pol.n_iter)
+        self._map_result = MapResult(*(np.asarray(a[0].cpu().numpy())
+                                       for a in res))
+        self._map_n_iter_lbfgs = n_lbfgs
+        c_t = constrain_drift(cfg, data, unravel_drift(cfg, res.params))
+        pred = predict_drift_target(cfg, data, c_t)[0].double().cpu().numpy()
+        c = {k: v[0].double().cpu().numpy() for k, v in c_t.items()}
+        self._drift_result = c
+        self._drift_cfg = cfg
+        self.stan_model_name = (f"Series_drift-{drift_model}"
+                                if dist_type == "series"
+                                else f"Parallel_drift-{drift_model}")
+
+        fits = {}
+        if drift_model in ("x1", "x2"):
+            fits["x0"] = self._rescale_coef(c["x0"], dist_type)
+            fits["x1"] = self._rescale_coef(c["x1"], dist_type)
+            fits["tau_x1"] = float(c["tau_1"])
+            if drift_model == "x2":
+                fits["x2"] = self._rescale_coef(c["x2"], dist_type)
+                fits["tau_x2"] = float(c["tau_2"])
+        elif drift_model in ("dx", "dx-lin"):
+            fits["x0"] = self._rescale_coef(c["x0"], dist_type)
+            fits["dx"] = self._rescale_coef(c["dx"], dist_type)
+            if drift_model == "dx":
+                fits["tau_dx"] = float(c["tau_1"])
+            else:
+                fits["m_Ft"] = 1.0 / times.max()
+        else:
+            key = "x1" if drift_model.endswith("from-final") else "x0"
+            fits[key] = self._rescale_coef(c[key], dist_type)
+            fits["R_rq"] = float(self._rescale_coef(c["R_rq"], dist_type))
+            fits["tau_rq"] = float(c["tau_rq"])
+            fits["phi_rq"] = float(c["phi_rq"])
+            if drift_model in ("RQ", "RQ-from-final"):
+                fits["k_d"] = float(c["k_d"])
+            elif drift_model == "RQ-lin":
+                fits["m_Ft"] = 1.0 / times.max()
+            else:
+                fits["t_i"] = float(times.min())
+                fits["t_f"] = float(times.max())
+        # alias: 'coef' = the static coefficient vector, so that
+        # predict_distribution and the peak fits see the time-zero (or
+        # final) distribution
+        fits["coef"] = fits.get("x0", fits.get("x1"))
+        self.distribution_fits = {dist_name: fits}
+
+        self.drift_offsets = {
+            "Rinf_0": float(self._rescale_coef(c["Rinf_0"], "series")),
+            "delta_Rinf": float(self._rescale_coef(c["delta_Rinf"],
+                                                   "series")),
+        }
+        if drift_model in ("x1", "x2", "dx"):
+            self.drift_offsets["tau_Rinf"] = float(c["tau_Rinf"])
+        if drift_model.endswith("from-final"):
+            self.drift_offsets["Rinf_1"] = self.drift_offsets.pop("Rinf_0")
+        self.R_inf = self.drift_offsets.get("Rinf_0",
+                                            self.drift_offsets.get("Rinf_1"))
+        self.inductance = float(self._rescale_coef(c["induc"], "series"))
+        n = len(frequencies)
+        st = np.sqrt(sigma_min ** 2 + c["sigma_res"] ** 2
+                     + (c["alpha_prop"] * pred) ** 2
+                     + (c["alpha_re"] * np.tile(pred[:n], 2)) ** 2
+                     + (c["alpha_im"] * np.tile(pred[n:], 2)) ** 2)
+        self.error_fit = {
+            "sigma_min": self._rescale_coef(sigma_min, "series"),
+            "sigma_res": float(self._rescale_coef(c["sigma_res"], "series")),
+            "sigma_tot": self._rescale_coef(st, "series"),
+            "alpha_prop": float(c["alpha_prop"]),
+            "alpha_re": float(c["alpha_re"]),
+            "alpha_im": float(c["alpha_im"]),
+        }
+        self.fit_type = "map-drift"
+        self.f_pred = None
+
+    def _drift_ridge_init(self, frequencies, Z, nonneg, dist_name):
+        """The drift fit's seed: init values of x0/x1, R_inf and the
+        inductance from a quick static hyper-lambda ridge of the whole
+        spectrum, in the drift model's scaled, unconstrained coordinates;
+        the fit state the ridge replaces is restored. A numerical failure
+        of the ridge warns and returns {} (the seeded start then stays
+        random); any other error, a device's or a kernel build's among
+        them, propagates."""
+        saved = (self.distribution_fits, self.fit_type, self._Z_scale)
+        try:
+            self.ridge_fit(frequencies, Z, penalty="integral",
+                           hyper_lambda=True, lambda_0=1, hl_beta=5,
+                           weights="modulus")
+            x_r = self.distribution_fits[dist_name]["coef"] / saved[2]
+            rinf_r = max(self.R_inf / saved[2], 1e-6)
+            induc_r = max(self.inductance / saved[2], 1e-10)
+        except (ValueError, ArithmeticError, np.linalg.LinAlgError,
+                torch.linalg.LinAlgError) as exc:
+            warnings.warn(f"Ridge initialization for drift fit failed: "
+                          f"{exc}")
+            return {}
+        finally:
+            self.distribution_fits, self.fit_type, self._Z_scale = saved
+        pos_x = (nonneg
+                 or self.distributions[dist_name]["dist_type"] == "parallel")
+        u_x = np.log(np.clip(x_r, 1e-10, None)) if pos_x else np.asarray(x_r)
+        return {"Rinf0_raw": np.log(rinf_r / 100.0),
+                "induc_raw": np.log(induc_r), "dRinf_raw": 0.0,
+                "x0": u_x, "x1": u_x, "dx": np.full_like(x_r, 1e-3),
+                "x2": np.full_like(x_r, 1e-3)}
+
+    def predict_Z_drift(self, frequencies, times, distributions=None,
+                        include_offsets=True):
+        """Impedance of a drift fit at per-point ``times`` (numpy, from the
+        fit's numpy state; the A matrices on the device)."""
+        if self.fit_type != "map-drift":
+            raise ValueError("predict_Z_drift requires a drift_map_fit result")
+        frequencies = np.asarray(frequencies, float)
+        times = np.asarray(times, float)
+        if len(times) != len(frequencies):
+            raise ValueError("times must have same length as frequencies")
+        name = list(self.distributions.keys())[0]
+        dist_type = self.distributions[name]["dist_type"]
+        model = self.stan_model_name.split("drift-")[1]
+        fits = self.distribution_fits[name]
+        offs = self.drift_offsets
+        pred_mat = self._get_prediction_matrices(frequencies, [name])[name]
+        A_re, A_im = pred_mat["A_re"], pred_mat["A_im"]
+        omega = 2 * np.pi * frequencies
+
+        if model in ("x1", "x2", "dx", "dx-lin"):
+            if model in ("x1", "x2"):
+                decay = 1 - np.exp(-times / fits["tau_x1"])
+                X = (fits["x0"][None, :]
+                     + (fits["x1"] - fits["x0"])[None, :] * decay[:, None])
+                if model == "x2":
+                    decay2 = 1 - np.exp(-times / fits["tau_x2"])
+                    X = X + fits["x2"][None, :] * decay2[:, None]
+            elif model == "dx":
+                decay = 1 - np.exp(-times / fits["tau_dx"])
+                X = fits["x0"][None, :] + fits["dx"][None, :] * decay[:, None]
+            else:
+                f_t = times * fits["m_Ft"]
+                X = fits["x0"][None, :] + fits["dx"][None, :] * f_t[:, None]
+            zr = np.sum(A_re * X, axis=1)
+            zi = np.sum(A_im * X, axis=1)
+            z = zr + 1j * zi
+            if dist_type == "parallel":
+                z = 1.0 / z
+            if model == "dx-lin":
+                rinf = (offs["Rinf_0"]
+                        + offs["delta_Rinf"] * times * fits["m_Ft"])
+            else:
+                rinf = (offs["Rinf_0"] + offs["delta_Rinf"]
+                        * (1 - np.exp(-times / offs["tau_Rinf"])))
+        else:
+            x_static = fits.get("x0", fits.get("x1"))
+            zr = A_re @ x_static
+            zi = A_im @ x_static
+            z = zr + 1j * zi
+            if dist_type == "parallel":
+                z = 1.0 / z
+            f_t = _drift_rq_ft(model, fits, times)
+            z = z + f_t * (fits["R_rq"]
+                           / (1 + (1j * omega * fits["tau_rq"])
+                              ** fits["phi_rq"]))
+            rinf = (offs.get("Rinf_0", offs.get("Rinf_1"))
+                    + offs["delta_Rinf"] * f_t)
+        if include_offsets:
+            z = z + rinf + 1j * omega * self.inductance
+        return z
+
+    def predict_distribution_drift(self, time, name=None, eval_tau=None):
+        """gamma(tau, t) of a drift fit at time ``time``."""
+        if self.fit_type != "map-drift":
+            raise ValueError("requires a drift_map_fit result")
+        if name is None:
+            name = list(self.distributions.keys())[0]
+        if eval_tau is None:
+            eval_tau = self.distributions[name]["tau"]
+        eval_tau = np.asarray(eval_tau, float)
+        bases = self._basis_matrix(name, eval_tau)
+        model = self.stan_model_name.split("drift-")[1]
+        fits = self.distribution_fits[name]
+        if model in ("x1", "x2"):
+            decay = 1 - np.exp(-time / fits["tau_x1"])
+            x = fits["x0"] + (fits["x1"] - fits["x0"]) * decay
+            if model == "x2":
+                x = x + fits["x2"] * (1 - np.exp(-time / fits["tau_x2"]))
+            return bases @ x
+        if model in ("dx", "dx-lin"):
+            f_t = (1 - np.exp(-time / fits["tau_dx"]) if model == "dx"
+                   else time * fits["m_Ft"])
+            return bases @ (fits["x0"] + fits["dx"] * f_t)
+        # RQ family: the static distribution plus the time-dependent ZARC
+        F0 = bases @ fits.get("x0", fits.get("x1"))
+        f_t = _drift_rq_ft(model, fits, time)
+        phi_rq = fits["phi_rq"]
+        f_rq = ((1 / (2 * np.pi)) * np.sin((1 - phi_rq) * np.pi)
+                / (np.cosh(phi_rq * np.log(eval_tau / fits["tau_rq"]))
+                   - np.cos((1 - phi_rq) * np.pi)))
+        return F0 + f_t * fits["R_rq"] * f_rq
 
     def _stan_style_result(self, cfg, names, cons, pred, st):
         """Constrained draws or values under Stan-style keys (x/xs/xp/
@@ -1190,9 +1490,20 @@ class Inverter:
     def predict_Z(self, frequencies, distributions=None, include_offsets=True,
                   percentile=None, times=None):
         """Impedance of the fit at ``frequencies`` (a percentile of the
-        posterior's for a sampled fit); ``times`` belongs to drift fits
-        (item 11d)."""
+        posterior's for a sampled fit); a drift fit needs ``times``, the
+        measurement time of each point."""
         frequencies = np.asarray(frequencies, float)
+        if self.fit_type == "map-drift":
+            if times is None:
+                raise ValueError(
+                    "This is a drift fit (fit_type='map-drift'): predict_Z "
+                    "requires times (one per frequency point)")
+            if percentile is not None:
+                raise ValueError("Percentile prediction is not available for "
+                                 "drift (MAP-only) fits")
+            return self.predict_Z_drift(frequencies, times,
+                                        distributions=distributions,
+                                        include_offsets=include_offsets)
         if times is not None:
             raise ValueError("times is only valid for drift_map_fit results "
                              f"(fit_type={self.fit_type!r})")
@@ -1273,9 +1584,9 @@ class Inverter:
         return z_mat
 
     def predict_Rp(self, distributions=None, percentile=None, time=None):
-        """Polarization resistance of the fit (or of ``distributions``)."""
-        if time is not None:
-            raise NotImplementedError("predict_Rp(time=...) " + _ITEM_11D)
+        """Polarization resistance of the fit (or of ``distributions``).
+        ``time`` is accepted and, as in the JAX package, unused: a drift
+        fit's Rp is its static (time-zero, or final) distribution's."""
         if distributions is None:
             distributions = list(self.distribution_fits.keys())
         elif isinstance(distributions, str):
@@ -1315,13 +1626,17 @@ class Inverter:
         if percentile is not None and self.fit_type != "bayes":
             raise ValueError("Percentile prediction is only available for "
                              "bayes_fit")
-        if times is not None:
+        if times is not None and self.fit_type != "map-drift":
             raise ValueError("times is only valid for drift_map_fit results "
                              f"(fit_type={self.fit_type!r})")
         frequencies = np.asarray(frequencies, float)
         n_train = len(self.f_train)
-        if np.array_equal(rel_round(self.f_train, 10),
-                          rel_round(frequencies, 10)):
+        times_match = (self.fit_type != "map-drift"
+                       or (times is not None and self.t_train is not None
+                           and np.array_equal(np.asarray(times, float),
+                                              self.t_train)))
+        if times_match and np.array_equal(rel_round(self.f_train, 10),
+                                          rel_round(frequencies, 10)):
             if self.fit_type == "bayes" and percentile is not None:
                 st = np.percentile(self._sample_result["sigma_tot"],
                                    percentile, axis=0) * self._Z_scale
@@ -1359,7 +1674,8 @@ class Inverter:
             raise ValueError("Error scale prediction only available for "
                              "bayes_fit and map_fit")
         sigma_min = self.error_fit["sigma_min"]
-        z_pred = self.predict_Z(frequencies, percentile=percentile)
+        z_pred = self.predict_Z(frequencies, percentile=percentile,
+                                times=times)
         sigma_base = np.sqrt(sigma_res ** 2 + np.min(sigma_out) ** 2
                              + sigma_min ** 2)
         sigma_re = np.sqrt(sigma_base ** 2 + (alpha_prop * z_pred.real) ** 2
@@ -1395,10 +1711,18 @@ class Inverter:
     def predict_distribution(self, name=None, eval_tau=None, percentile=None,
                              time=None):
         """gamma(tau) of distribution ``name`` on ``eval_tau`` (the basis
-        grid by default; a posterior percentile for a sampled fit)."""
+        grid by default; a posterior percentile for a sampled fit; at
+        ``time`` for a drift fit, whose static distribution is the
+        time-zero, or final, one)."""
         if time is not None:
-            raise ValueError("time is only valid for drift_map_fit results "
-                             f"(fit_type={self.fit_type!r})")
+            if self.fit_type != "map-drift":
+                raise ValueError("time is only valid for drift_map_fit "
+                                 f"results (fit_type={self.fit_type!r})")
+            if percentile is not None:
+                raise ValueError("Percentile prediction is not available for "
+                                 "drift (MAP-only) fits")
+            return self.predict_distribution_drift(time, name=name,
+                                                   eval_tau=eval_tau)
         if name is None:
             name = list(self.distributions.keys())[0]
         if eval_tau is None:
@@ -1408,12 +1732,17 @@ class Inverter:
             coef = self.coef_percentile(name, percentile)
         else:
             coef = self.distribution_fits[name]["coef"]
+        return self._basis_matrix(name, eval_tau) @ coef
+
+    def _basis_matrix(self, name, eval_tau):
+        """The basis functions of distribution ``name`` at ``eval_tau``
+        (rows) and its basis time constants (columns), float64 numpy."""
         eps = self.distributions[name]["epsilon"]
         basis_tau = self.distributions[name]["tau"]
         phi = get_basis_func(self.basis)
         y = self._tensor(np.log(eval_tau[:, None] / basis_tau[None, :]),
                          torch.float64)
-        return phi(y, eps).cpu().numpy() @ coef
+        return phi(y, eps).cpu().numpy()
 
     def check_outliers(self, frequencies, Z, threshold=3.5,
                        use_existing_fit=False, **ridge_kw):
@@ -1453,25 +1782,138 @@ class Inverter:
             outlier_idx = np.argwhere(zs_tot > threshold)
         return outlier_idx
 
-    # --- peak fitting: item 11c ------------------------------------------
+    # =====================================================================
+    # Peak fits (peaks.py: HN decomposition, the LM on the device)
+    # =====================================================================
 
-    def fit_peaks(self, *args, **kwargs):
-        raise NotImplementedError("fit_peaks " + _ITEM_11C)
+    def _peak_eval_tau(self, distribution):
+        basis_tau = self.distributions[distribution]["tau"]
+        tmin = np.log10(np.min(basis_tau)) - 1
+        tmax = np.log10(np.max(basis_tau)) + 1
+        return np.logspace(tmin, tmax, int(10 * (tmax - tmin) + 1))
 
-    def fit_peaks_constrained(self, *args, **kwargs):
-        raise NotImplementedError("fit_peaks_constrained " + _ITEM_11C)
+    def _peak_place(self):
+        return dict(device=self._device, dtype=self._dtype)
 
-    def predict_peak_distribution(self, *args, **kwargs):
-        raise NotImplementedError("predict_peak_distribution " + _ITEM_11C)
+    def fit_peaks(self, distribution=None, eval_tau=None, percentile=None,
+                  time=None, check_shoulders=True, weights=None,
+                  prom_rthresh=0.001, R_rthresh=0.005, l1_penalty=0,
+                  l2_penalty=0.01, check_chi_sq=False, chi_sq_thresh=0.5,
+                  chi_sq_delta=0.3, fit_data=False, frequencies=None, Z=None,
+                  Z_weights=None, lambda_x=10):
+        """HN peak decomposition of a recovered distribution (at ``time``
+        for a drift fit); with ``fit_data`` the peaks are then refit
+        against the impedance ``Z``. The result, sorted by time constant,
+        lands in ``distribution_fits[distribution]['peak_params']`` with
+        its ``peak_chi_sq``."""
+        if distribution is None:
+            distribution = list(self.distributions.keys())[0]
+        if eval_tau is None:
+            eval_tau = self._peak_eval_tau(distribution)
+        F = self.predict_distribution(distribution, eval_tau, percentile, time)
+        nonneg = bool(np.min(F) >= 0)
+        rp = self.predict_Rp()
+        x = peaks.fit_peaks(eval_tau, F, rp, weights=weights, nonneg=nonneg,
+                            check_shoulders=check_shoulders,
+                            prom_rthresh=prom_rthresh, R_rthresh=R_rthresh,
+                            check_chi_sq=check_chi_sq,
+                            chi_sq_thresh=chi_sq_thresh,
+                            chi_sq_delta=chi_sq_delta, l1_penalty=l1_penalty,
+                            l2_penalty=l2_penalty, **self._peak_place())
+        if fit_data:
+            if frequencies is None or Z is None:
+                raise ValueError("frequencies and Z must be provided if "
+                                 "fit_data==True")
+            x = peaks.fit_data(x, frequencies, Z, R_inf=self.R_inf,
+                               inductance=self.inductance, weights=Z_weights,
+                               lambda_x=lambda_x, **self._peak_place())["x"]
+        # sort by time constant
+        x = np.asarray(x)
+        if len(x):
+            order = np.argsort(np.exp(x[1::4]))
+            x = x.reshape(-1, 4)[order].ravel()
+        self.distribution_fits[distribution]["peak_params"] = x
+        self.distribution_fits[distribution]["peak_chi_sq"] = \
+            self.score_peak_fit(eval_tau=eval_tau, distribution=distribution,
+                                weights=weights, percentile=percentile,
+                                time=time)
 
-    def predict_peak_Z(self, *args, **kwargs):
-        raise NotImplementedError("predict_peak_Z " + _ITEM_11C)
+    def fit_peaks_constrained(self, tau0_guess, distribution=None,
+                              eval_tau=None, percentile=None, time=None,
+                              sigma_lntau=5, lntau_uncertainty=3, weights=None,
+                              l2_penalty=0.01):
+        """HN peaks at the time constants ``tau0_guess``, each tied to its
+        guess by a ln-tau prior."""
+        if distribution is None:
+            distribution = list(self.distributions.keys())[0]
+        if eval_tau is None:
+            eval_tau = self._peak_eval_tau(distribution)
+        F = self.predict_distribution(distribution, eval_tau, percentile, time)
+        nonneg = bool(np.min(F) >= 0)
+        rp = self.predict_Rp()
+        result = peaks.constrained_peak_fit(
+            eval_tau, F, tau0_guess, rp, nonneg, lntau_uncertainty,
+            sigma_lntau, weights, l2_penalty, **self._peak_place())
+        self.distribution_fits[distribution]["peak_params"] = result["x"]
+        self.distribution_fits[distribution]["peak_chi_sq"] = \
+            self.score_peak_fit(eval_tau=eval_tau, distribution=distribution,
+                                weights=weights, percentile=percentile,
+                                time=time)
 
-    def extract_peak_info(self, *args, **kwargs):
-        raise NotImplementedError("extract_peak_info " + _ITEM_11C)
+    def predict_peak_distribution(self, eval_tau=None, distribution=None,
+                                  peak_index=None):
+        """gamma(tau) of the fitted peaks (or of peak ``peak_index``)."""
+        if distribution is None:
+            distribution = list(self.distributions.keys())[0]
+        if eval_tau is None:
+            eval_tau = self._peak_eval_tau(distribution)
+        params = self.distribution_fits[distribution]["peak_params"]
+        if peak_index is not None:
+            params = params[4 * peak_index:4 * peak_index + 4]
+        return peaks.evaluate_fit_distribution(
+            params, eval_tau, **self._peak_place()).double().cpu().numpy()
 
-    def score_peak_fit(self, *args, **kwargs):
-        raise NotImplementedError("score_peak_fit " + _ITEM_11C)
+    def predict_peak_Z(self, frequencies, distribution=None):
+        """Impedance of the fitted peaks plus R_inf and the inductance."""
+        if distribution is None:
+            distribution = list(self.distributions.keys())[0]
+        return peaks.evaluate_fit_impedance(
+            self.distribution_fits[distribution]["peak_params"], frequencies,
+            self.R_inf, self.inductance,
+            **self._peak_place()).cpu().numpy().astype(complex)
+
+    def extract_peak_info(self, distribution=None, sort=True):
+        """The fitted peaks' R, tau_0, alpha and beta (by tau_0 when
+        ``sort``), their count and chi-square."""
+        if distribution is None:
+            distribution = list(self.distributions.keys())[0]
+        params = np.asarray(
+            self.distribution_fits[distribution]["peak_params"])
+        R = params[::4]
+        t0 = np.exp(params[1::4])
+        alpha = params[2::4]
+        beta = params[3::4]
+        if sort:
+            order = np.argsort(t0)
+            R, t0, alpha, beta = R[order], t0[order], alpha[order], beta[order]
+        return {"num_peaks": len(params) // 4,
+                "chi_sq": self.distribution_fits[distribution]["peak_chi_sq"],
+                "R": R, "tau_0": t0, "alpha": alpha, "beta": beta}
+
+    def score_peak_fit(self, eval_tau=None, distribution=None, weights=None,
+                       percentile=None, time=None):
+        """Weighted chi-square of the peak fit against the distribution
+        (the weights' 80th percentile on the host, numpy)."""
+        if distribution is None:
+            distribution = list(self.distributions.keys())[0]
+        if eval_tau is None:
+            eval_tau = self.distributions[distribution]["tau"]
+        F = self.predict_distribution(distribution, eval_tau, percentile, time)
+        F_fit = self.predict_peak_distribution(eval_tau=eval_tau,
+                                               distribution=distribution)
+        if weights is None:
+            weights = 1.0 / (F + np.percentile(F, 80))
+        return float(np.sum(((F_fit - F) * weights) ** 2))
 
     # =====================================================================
     # Persistence
@@ -1530,7 +1972,7 @@ class Inverter:
             self.f_pred = f_pred_old
             self._recalc_mat = True
 
-    # --- plotting wrappers: with 11c --------------------------------------
+    # --- plotting wrappers: item 11f --------------------------------------
 
     def plot_distribution(self, *args, **kwargs):
         raise NotImplementedError("plot_distribution " + _PLOTS)
@@ -1546,6 +1988,17 @@ class Inverter:
 
     def plot_peak_fit(self, *args, **kwargs):
         raise NotImplementedError("plot_peak_fit " + _PLOTS)
+
+
+def _drift_rq_ft(model, fits, t):
+    """F(t) of an RQ-family drift fit from its (rescaled) fits."""
+    if model == "RQ":
+        return 1 - np.exp(-fits["k_d"] * t)
+    if model == "RQ-lin":
+        return t * fits["m_Ft"]
+    if model == "RQ-from-final":
+        return -np.exp(-fits["k_d"] * t)
+    return (t - fits["t_f"]) / (fits["t_f"] - fits["t_i"])
 
 
 def _validate_ridge(inv, penalty="discrete", hl_beta=2.5, hyper_lambda=True,

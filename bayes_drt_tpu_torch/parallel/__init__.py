@@ -1,6 +1,7 @@
-from .batch import (BatchFitResult, evaluate_gamma, fit_spectra_batch,
-                    fit_spectra_ragged, predict_Z_batch,
+from .batch import (BatchFitResult, drift_fit_spectra_batch, evaluate_gamma,
+                    fit_spectra_batch, fit_spectra_ragged, predict_Z_batch,
                     ridge_fit_spectra_batch)
 
-__all__ = ["BatchFitResult", "evaluate_gamma", "fit_spectra_batch",
-           "fit_spectra_ragged", "predict_Z_batch", "ridge_fit_spectra_batch"]
+__all__ = ["BatchFitResult", "drift_fit_spectra_batch", "evaluate_gamma",
+           "fit_spectra_batch", "fit_spectra_ragged", "predict_Z_batch",
+           "ridge_fit_spectra_batch"]

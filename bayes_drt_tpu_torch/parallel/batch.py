@@ -21,8 +21,11 @@ padded to one length and masked, each with its own A matrices.
 hyper-lambda, ordinary or hyper-weights, lambda_0 by Re-Im
 cross-validation) that seeds a single series distribution's fits, the
 Inverter's admittance ridge a single parallel one's;
-``predict_Z_batch`` evaluates a fit's impedance. A DRT's A matrices come
-from the hand-written quadrature kernel (ops/quad.py).
+``predict_Z_batch`` evaluates a fit's impedance.
+``drift_fit_spectra_batch`` fits fleets of time-evolving spectra on one
+sweep schedule (models/drift.py): seeded and random starts of every cell
+as one batch of L-BFGS rows. A DRT's A matrices come from the
+hand-written quadrature kernel (ops/quad.py).
 
 Not ported yet: ChEES, warm starts, the pooled preconditioner,
 ``monitor_thin`` and meshes.
@@ -50,6 +53,10 @@ from ..infer.shmc_flat import (flat_eligible, flat_shared_for,
                                flat_spec_for, flat_value_and_grad,
                                sample_shmc_flat)
 from ..models.build import build_posterior, sort_distributions, z_scale_for
+from ..models.drift import (DRIFT_MODELS, DriftConfig, DriftData,
+                            constrain_drift, drift_value_and_grad,
+                            init_drift_params, predict_drift_target,
+                            ravel_drift, unravel_drift)
 from ..models.posterior import (constrain, flat_dim, group_data,
                                 init_unconstrained, log_density,
                                 posterior_value_and_grad, predict_target,
@@ -1556,6 +1563,249 @@ def _cv_errors(cfg, data, grid, A_re, A_im, T_re, T_im, solve_at):
         recv.append(((t_re - coef_i @ A_re.T) ** 2).sum(dim=1))
     return (torch.cat(recv).reshape(b, n_lam),
             torch.cat(imcv).reshape(b, n_lam))
+
+
+def drift_pick(values):
+    """Each problem's winning row of (P, 1 + n) L-BFGS values: column 0 is
+    the seeded start, columns 1.. the random restarts. The best finite
+    restart (the first on ties) against the seeded row, which wins ties;
+    a NaN value never beats a finite one. Returns (P,) column indices."""
+    v = torch.where(torch.isfinite(values), values, math.inf)
+    if v.shape[1] == 1:
+        return torch.zeros(v.shape[0], dtype=torch.long, device=v.device)
+    ib = 1 + torch.argmin(v[:, 1:], dim=1)
+    rv = torch.gather(v, 1, ib[:, None])[:, 0]
+    return torch.where(v[:, 0] <= rv, torch.zeros_like(ib), ib)
+
+
+def _median_last(x):
+    """Median over the last axis, averaging the two middle values of an
+    even count (jnp.median's rule; torch.median returns the lower)."""
+    s = torch.sort(x, dim=-1).values
+    n = s.shape[-1]
+    return 0.5 * (s[..., (n - 1) // 2] + s[..., n // 2])
+
+
+def drift_data(frequencies, times, A_re, A_im, L, targets, tau,
+               sigma_min, inductance_scale, min_tau_drift, max_tau_drift,
+               dtype, device):
+    """DriftData on ``device`` in ``dtype`` from the matrices (tensors or
+    numpy) and the per-row (or one) scaled targets."""
+    def t(a):
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.array(a, dtype=float), device=device)
+        return a.to(device=device, dtype=dtype)
+
+    times = np.asarray(times, float)
+    return DriftData(
+        A_re=t(A_re), A_im=t(A_im), L=t(L), Z=t(targets),
+        freq=t(frequencies), times=t(times), sigma_min=t(sigma_min),
+        ups_alpha=t(0.05), ups_beta=t(0.1), induc_scale=t(inductance_scale),
+        tau_bounds=t([min_tau_drift, max_tau_drift]),
+        tau2_bounds=t([max(min_tau_drift, 500.0), max_tau_drift]),
+        rq_tau_bounds=t([tau.min(), tau.max()]), k_bounds=t([1e-4, 1.0]),
+        t_max=t(times.max()), t_min=t(times.min()))
+
+
+def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
+                            basis_freq=None, epsilon=None,
+                            nonneg: bool = False, sigma_min: float = 0.002,
+                            max_iter: int = 2000, random_seed: int = 0,
+                            inductance_scale: float = 1.0,
+                            init_from_ridge: bool = True, n_restarts: int = 2,
+                            min_tau_drift: float = 200.0,
+                            max_tau_drift: float = 10000.0, mesh=None,
+                            basis: str = "gaussian", dtype=None,
+                            distributions=None, timing: bool = False,
+                            device=None) -> BatchFitResult:
+    """Batched MAP fits of time-evolving spectra: B cells measured on the
+    same frequency sweep schedule (shared per-point measurement times),
+    the fleet form of ``Inverter.drift_map_fit``.
+
+    ``times``: measurement time of each frequency point (len ==
+    len(frequencies), seconds), shared by the batch. Measurement order is
+    kept (not sorted to descending frequency), so times stay aligned.
+    ``distributions``: an optional single-entry mini-DSL dict (drift fits
+    take one distribution).
+
+    Each cell's start is seeded from one batched hyper-lambda ridge pass
+    (x0/x1, R_inf, inductance; a series DRT only: any other distribution
+    warns and starts from neutral values) with the other parameters drawn
+    at random, plus ``n_restarts`` random starts; all B x (1 +
+    n_restarts) rows run as one batch through the L-BFGS of
+    infer/map.py (no polish), and each cell keeps its best finite row,
+    the seeded one on ties. A DRT's A comes from the quadrature kernel on
+    a CUDA device, in measurement order.
+
+    Returns a BatchFitResult whose ``coef``/``r_inf``/``inductance`` are
+    the time-zero (or final, for *-from-final models) values;
+    ``diagnostics['drift']`` carries every rescaled drift parameter,
+    ``['value']``/``['n_iter']`` each cell's optimizer state and
+    ``['median_rel_resid']`` the median relative impedance residual of
+    its fitted trajectory; with ``timing``, ``['phase_s']`` (setup /
+    ridge / lbfgs / result seconds, closed by a device synchronize) and
+    ``['n_iter_rows']`` every row's iterations. ``mesh`` (item 12)
+    raises."""
+    if drift_model not in DRIFT_MODELS:
+        raise ValueError(f"Invalid drift_model {drift_model!r}. Options "
+                         f"are {DRIFT_MODELS}")
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
+                                  "item 12)")
+    frequencies = np.asarray(frequencies, float)
+    times = np.asarray(times, float)
+    if len(times) != len(frequencies):
+        raise ValueError("times must have same length as frequencies")
+    Z_batch = np.asarray(Z_batch)
+    if Z_batch.ndim != 2 or Z_batch.shape[1] != len(frequencies):
+        raise ValueError(f"Z_batch must be (B, {len(frequencies)})")
+    if distributions is None:
+        distributions = {"DRT": {"kernel": "DRT", "dist_type": "series"}}
+    if len(distributions) != 1:
+        raise ValueError("drift fits support a single distribution")
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    mark, phases = _phase_clock(timing, dev)
+    Z_batch, b_real = _pad_pow2(Z_batch)
+    b, n = Z_batch.shape
+
+    dist_name, info = next(iter(distributions.items()))
+    info = dict(info)
+    if info.get("kernel", "DRT") == "DRT":
+        info.setdefault("dist_type", "series")
+    else:
+        info.setdefault("dist_type", "parallel")
+        info.setdefault("symmetry", "planar")
+        info.setdefault("bc", "blocking")
+    info.setdefault("ct", False)
+    dist_type = info["dist_type"]
+
+    if basis_freq is None:
+        tau = get_tau_basis(np.sort(frequencies)[::-1])
+    else:
+        tau = 1.0 / (2 * np.pi * np.asarray(basis_freq, float))
+    eps = default_epsilon(tau) if epsilon is None else float(epsilon)
+    f_coll = 1.0 / (2 * np.pi * tau)
+    f64 = dict(dtype=torch.float64, device=dev)
+    kw = dict(tau=tau, basis=basis, epsilon=eps,
+              kernel=info.get("kernel", "DRT"), dist_type=dist_type,
+              symmetry=info.get("symmetry", "planar"),
+              bc=info.get("bc", "transmissive"), ct=info["ct"],
+              k_ct=info.get("k_ct", None), **f64)
+    A_re = construct_A(frequencies, "real", **kw)
+    A_im = construct_A(frequencies, "imag", **kw)
+    # the mode-scaled L stack of the single-spectrum drift fit
+    L = torch.stack([1.5 * s * construct_L(f_coll, tau=tau, basis=basis,
+                                           epsilon=eps, order=o, **f64)
+                     for o, s in ((0, 0.24), (1, 0.16), (2, 0.08))])
+
+    # scale with the normalized distribution so an under-specified DDT
+    # gets the 'blocking' default the Inverter applies
+    z_scales = np.asarray(z_scale_for({dist_name: info}, Z_batch, "map"))
+    Zs = Z_batch / z_scales[:, None]
+    targets = np.concatenate([Zs.real, Zs.imag], axis=1)     # (B, 2N)
+    cfg = DriftConfig(drift_model=drift_model, dist_type=dist_type,
+                      nonneg=nonneg, K=len(tau))
+    data = drift_data(frequencies, times, A_re, A_im, L, targets, tau,
+                      sigma_min, inductance_scale, min_tau_drift,
+                      max_tau_drift, dt, dev)
+    mark("setup")
+
+    pos_x = nonneg or dist_type == "parallel"
+    if init_from_ridge and (info.get("kernel", "DRT") != "DRT"
+                            or dist_type != "series"):
+        # the batched ridge fits a series DRT, whose coefficients live in
+        # another space than this distribution's
+        warnings.warn(
+            "init_from_ridge seeds from a series-DRT ridge fit, which does "
+            "not match this distribution's coefficient space; using neutral "
+            "inits instead — consider raising n_restarts.")
+        init_from_ridge = False
+    if init_from_ridge:
+        rr = ridge_fit_spectra_batch(
+            frequencies, Z_batch, basis_freq=f_coll, penalty="integral",
+            hyper_lambda=True, lambda_0=1.0, hl_beta=5.0, weights="modulus",
+            basis=basis, dtype=dt, device=dev)
+        x_r = rr.coef / z_scales[:, None]
+        rinf_r = np.clip(rr.r_inf / z_scales, 1e-6, None)
+        induc_r = np.clip(rr.inductance / z_scales, 1e-10, None)
+        iv_x = np.log(np.clip(x_r, 1e-10, None)) if pos_x else x_r
+        iv_rinf = np.log(rinf_r / 100.0)
+        iv_induc = np.log(induc_r)
+        mark("ridge")
+    else:
+        iv_x = np.zeros((b, len(tau)))
+        iv_rinf = np.full(b, np.log(1e-2))
+        iv_induc = np.full(b, np.log(1e-10))
+    iv = {"Rinf0_raw": iv_rinf, "induc_raw": iv_induc, "dRinf_raw": 0.0,
+          "x0": iv_x, "x1": iv_x, "dx": np.full_like(iv_x, 1e-3),
+          "x2": np.full_like(iv_x, 1e-3)}
+
+    gen = torch.Generator(device=dev).manual_seed(int(random_seed))
+    q0 = ravel_drift(cfg, init_drift_params(cfg, data, gen, batch_shape=(b,),
+                                            init_values=iv))[:, None]
+    if n_restarts > 0:
+        q0 = torch.cat([q0, ravel_drift(cfg, init_drift_params(
+            cfg, data, gen, batch_shape=(b, n_restarts)))], dim=1)
+    rows = q0.shape[1]
+    vg = drift_value_and_grad(cfg, data._replace(
+        Z=data.Z.repeat_interleave(rows, dim=0)))
+
+    def loss(q):
+        lp, g = vg(q)
+        return -lp, -g
+
+    res = run_lbfgs(loss, q0.reshape(b * rows, -1), max_iter=max_iter)
+    mark("lbfgs")
+    pick = (torch.arange(b, device=dev) * rows
+            + drift_pick(res.value.reshape(b, rows)))
+    c = constrain_drift(cfg, data, unravel_drift(cfg, res.params[pick]))
+    # reconstruction quality of the fitted drift trajectory (the single-
+    # spectrum drift test's gate)
+    pred = predict_drift_target(cfg, data, c)
+    zmod = torch.sqrt(data.Z[:, :n] ** 2 + data.Z[:, n:] ** 2)
+    resid = torch.sqrt((pred[:, :n] - data.Z[:, :n]) ** 2
+                       + (pred[:, n:] - data.Z[:, n:]) ** 2)
+    med_resid = _median_last(resid / torch.clamp_min(zmod, 1e-30))
+
+    def host(t):
+        return t[:b_real].cpu().numpy()
+
+    c = {k: host(v) for k, v in c.items()}
+    value = host(res.value[pick])
+    n_it = host(res.n_iter[pick]).astype(np.float32)
+    med_resid = host(med_resid)
+    z_scales = z_scales[:b_real]
+    mark("result")
+
+    # rescale to impedance units: offsets series-scaled, coefficient
+    # vectors by the distribution type (Inverter._rescale_coef)
+    def rescale_vec(v):
+        if dist_type == "parallel":
+            return v / z_scales[:, None]
+        return v * z_scales[:, None]
+
+    drift = {}
+    for k, v in c.items():
+        if k in ("x0", "x1", "dx", "x2"):
+            drift[k] = rescale_vec(v)
+        elif k in ("Rinf_0", "delta_Rinf", "induc", "sigma_res", "R_rq"):
+            drift[k] = v * z_scales
+        elif not k.startswith(("ups_", "d_strength_")):
+            drift[k] = v          # time constants, exponents, error alphas
+    static_key = "x1" if drift_model.endswith("from-final") else "x0"
+    diagnostics = {"value": value, "n_iter": n_it,
+                   "median_rel_resid": med_resid,
+                   "drift_model": drift_model, "drift": drift}
+    if timing:
+        diagnostics["phase_s"] = phases
+        diagnostics["n_iter_rows"] = res.n_iter.reshape(b, rows)[
+            :b_real].cpu().numpy()
+    return BatchFitResult(
+        coef=drift.get(static_key, drift.get("x0")),
+        r_inf=drift["Rinf_0"], inductance=drift["induc"],
+        gamma_lo=None, gamma_hi=None, z_scales=z_scales, tau=tau,
+        epsilon=eps, diagnostics=diagnostics, basis=basis)
 
 
 def evaluate_gamma(result: BatchFitResult, eval_tau, which: str = "coef"):

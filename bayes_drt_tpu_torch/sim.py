@@ -227,3 +227,49 @@ def make_ragged_fleet(n_spectra, seed=0):
         Z = Z + sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
         spectra.append((freq, Z))
     return spectra
+
+
+def make_drift_fleet(n_cells, seed=0):
+    """Cells on one three-sweep schedule drifting by a growing ZARC, the
+    recipe of the JAX package's drift benchmark: 31 frequencies
+    10^5..10^-1 Hz swept three times over 5400 s (N = 93), each cell
+    1 + ZARC(1, 1e-3, 0.85) plus (1 - e^{-t/tau_d}) ZARC(s, 0.05, 0.9)
+    with s ~ U(0.2, 0.8) and tau_d ~ U(400, 1200) s, complex noise at
+    0.001. Returns (freq, times, Z (n_cells, N))."""
+    rng = np.random.default_rng(seed)
+    base_freq = np.logspace(5, -1, 31)
+    freq = np.tile(base_freq, 3)
+    times = np.linspace(0, 3 * 1800.0, len(freq))
+    omega = 2 * np.pi * freq
+    scales = rng.uniform(0.2, 0.8, n_cells)
+    taus_d = rng.uniform(400.0, 1200.0, n_cells)
+    Zb = []
+    for s, td in zip(scales, taus_d):
+        z = 1.0 + 1.0 / (1 + (1j * omega * 1e-3) ** 0.85) \
+            + (1 - np.exp(-times / td)) * (s / (1 + (1j * omega * 0.05)
+                                                ** 0.9))
+        z += 0.001 * (rng.standard_normal(len(z))
+                      + 1j * rng.standard_normal(len(z)))
+        Zb.append(z)
+    return freq, times, np.array(Zb)
+
+
+def make_drifting_spectrum(model="RQ", seed=0):
+    """One spectrum drifting by a growing ZARC(0.5, 0.05, 0.9) at rate
+    1/600 s, measured over three consecutive 31-point sweeps (drift is
+    identifiable only where a frequency is revisited), the JAX package's
+    drift test spectrum. Returns (freq, Z, times)."""
+    rng = np.random.default_rng(seed)
+    base_freq = np.logspace(5, -1, 31)
+    freq = np.tile(base_freq, 3)
+    times = np.linspace(0, 3 * 1800.0, len(freq))
+    omega = 2 * np.pi * freq
+    z_static = 1.0 + 1.0 / (1 + (1j * omega * 1e-3) ** 0.85)
+    if model.startswith("RQ"):
+        f_t = 1 - np.exp(-(1.0 / 600.0) * times)     # rate k_d
+    else:
+        f_t = 1 - np.exp(-times / 600.0)             # time constant
+    Z = z_static + f_t * (0.5 / (1 + (1j * omega * 0.05) ** 0.9))
+    Z = Z + 0.001 * (rng.standard_normal(len(Z))
+                     + 1j * rng.standard_normal(len(Z)))
+    return freq, Z, times

@@ -93,8 +93,25 @@ line is printed):
      Inverter test budget (there also rhat_max < 5), SHMC, each gated as
      the JAX package's Inverter tests, check_outliers and a save/load
      round trip.
-  14. one JSON line listing both kernels with their launches (phases 4,
-     6, 7, 10, 11, 12 and 13) and times; K2's bound counts the function's
+  14. drift, peaks and ECM: (a) the drift bench's fleet (64 cells, N=93,
+     K=81, x1, 2 restarts, cap 1500, float32) through
+     drift_fit_spectra_batch twice, gated on finite coefficients, every
+     cell's median relative Z residual (< 0.05), tau_1 within its bounds
+     and the median over cells (<= 1.5x the JAX package's own), then the
+     bench's serial line (Inverter.drift_map_fit of one cell, twice) and
+     the fleet's speedup; (b) Inverter.drift_map_fit on the JAX drift
+     test's three-sweep spectrum (RQ with 63 restarts: at its 8 the gates
+     hold on 7 of 10 seeds in the JAX package; x1) in float64 with its
+     gates
+     and the time-routed predictions; (c) HN peaks on a MAP fit of a
+     noisy 2ZARC spectrum (every peak method, the JAX peak workflow
+     test's gates) and fit_ecm on the JAX ECM tests' circuits with their
+     gates; (d) float64 card-vs-CPU parity of the drift density and
+     gradient (all eight models, series and parallel), run_lbfgs on drift
+     rows, bounded_lm on a peak residual, and K2 against its plain
+     version on the fleet's unsorted, repeated grid.
+  15. one JSON line listing both kernels with their launches (phases 4,
+     6, 7, 10, 11, 12, 13 and 14) and times; K2's bound counts the function's
      least fp64 work a node, and the count its compiled loop issues
      (cuobjdump -sass) is printed beside it.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -257,6 +274,26 @@ INV_NUTS_TEST_WARMUP = 120
 INV_NUTS_TEST_SAMPLES = 120
 INV_GATE_RHAT_MAX = 5.0
 INV_GATE_ESS_MIN = 2.0
+
+# the drift phase: the drift bench's configuration
+# (benchmarks/bench_drift.py: make_fleet(64, seed=0), x1, 2 restarts,
+# min_tau_drift 100, max_iter 1500; float32), each cell's median relative
+# Z residual gated as the JAX package's drift tests gate it
+# (tests/test_round3.py:555-583), the fleet's median of them at 1.5x the
+# JAX package's own on the same cells (float32 on the CPU, random_seed 1,
+# scripts/jax_drift_reference.py); the LM parity's iteration cap
+DRIFT_B = 64
+DRIFT_KW = dict(drift_model="x1", n_restarts=2, min_tau_drift=100.0,
+                max_iter=1500)
+DRIFT_GATE_RESID = 0.05
+DRIFT_JAX_P50 = 0.0017872425960376859
+DRIFT_GATE_P50 = 1.5 * DRIFT_JAX_P50
+DRIFT_LM_CAP = 20
+# the Inverter's RQ drift fit: 63 restarts (64 starts, one batch of rows)
+# in place of the JAX test's 8, whose best start reaches the drifting
+# element's basin on 7 of 10 seeds in the JAX package
+# (scripts/jax_drift_reference.py rq)
+DRIFT_RQ_RESTARTS = 63
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -2494,6 +2531,400 @@ def phase_inverter(card):
     return launches
 
 
+def drift_fleet(card, failed):
+    """(a) the drift bench's fleet through drift_fit_spectra_batch, twice
+    (random_seed 0, then 1), gated; then its serial line: one
+    Inverter.drift_map_fit of cell 0 with the same arguments, twice."""
+    import torch
+    from bayes_drt_tpu_torch import Inverter, sim
+    from bayes_drt_tpu_torch.parallel import drift_fit_spectra_batch
+    freq, times, zb = sim.make_drift_fleet(DRIFT_B, seed=0)
+    out, walls = {}, []
+    for seed in (0, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = drift_fit_spectra_batch(freq, times, zb, random_seed=seed,
+                                      timing=True, **DRIFT_KW)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        d = res.diagnostics
+        resid = d["median_rel_resid"]
+        tau_1 = d["drift"]["tau_1"]
+        rows_it = d["n_iter_rows"]
+        p50 = float(np.median(resid))
+        gates = {"finite": bool(np.isfinite(res.coef).all()
+                                and res.coef.shape == (DRIFT_B,
+                                                       len(res.tau))),
+                 "resid": bool((resid < DRIFT_GATE_RESID).all()),
+                 "tau_1": bool(((tau_1 >= DRIFT_KW["min_tau_drift"])
+                                & (tau_1 <= 1e4)).all())}
+        if seed == 1:
+            gates["p50"] = bool(p50 <= DRIFT_GATE_P50)
+        out[f"seed{seed}"] = {
+            "wall_s": walls[-1], "phase_s": d["phase_s"],
+            "s_per_lbfgs_iter": d["phase_s"]["lbfgs"] / float(rows_it.max()),
+            "lbfgs_rows": int(rows_it.size),
+            "n_iter_q": [float(np.percentile(d["n_iter"], q))
+                         for q in (0, 10, 50, 90, 100)],
+            "rows_n_iter_q": [float(np.percentile(rows_it, q))
+                              for q in (0, 50, 100)],
+            "resid_p50": p50, "resid_max": float(resid.max()),
+            "tau_1_range": [float(tau_1.min()), float(tau_1.max())],
+            "gates": gates}
+        failed += [f"fleet seed{seed} {k}" for k, v in gates.items() if not v]
+    out["bars"] = {"resid_each": DRIFT_GATE_RESID, "p50": DRIFT_GATE_P50,
+                   "jax_p50": DRIFT_JAX_P50}
+    print("drift fleet: " + json.dumps(out) + f" [{card}]")
+    serial = []
+    for _ in range(2):
+        inv = Inverter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inv.drift_map_fit(freq, zb[0], times, random_seed=0, **DRIFT_KW)
+        torch.cuda.synchronize()
+        serial.append(time.perf_counter() - t0)
+        z_hat = inv.predict_Z_drift(freq, times)
+        resid0 = float(np.median(np.abs(z_hat - zb[0]) / np.abs(zb[0])))
+        if not resid0 < DRIFT_GATE_RESID:
+            failed.append("serial resid")
+    best, s_best = min(walls), min(serial)
+    print("drift serial: " + json.dumps({
+        "seconds": serial, "timings": inv.timings.summary(),
+        "lbfgs_iters": inv._map_n_iter_lbfgs,
+        "polish_iters": int(inv._map_result.n_iter) - inv._map_n_iter_lbfgs,
+        "resid": resid0, "fleet_best_s": best,
+        "fleet_ms_per_cell": 1e3 * best / DRIFT_B,
+        "speedup": s_best * DRIFT_B / best}) + f" [{card}]")
+
+
+def drift_inverter(card, failed):
+    """(b) Inverter.drift_map_fit on the JAX drift test's three-sweep
+    spectrum: RQ and x1, with that test's gates, and the time routing of
+    predict_Rp / predict_sigma / predict_distribution. In float64, as
+    that test runs: in float32 L-BFGS's stagnation rule (floored at 10
+    eps) stops the restarts early. The RQ fit's gates ask that the best
+    start land in the drifting element's basin: at the test's 8 restarts
+    that holds on 7 of 10 seeds in the JAX package itself and on 4 of 10
+    in the port on the CPU (its draws differ; scripts/
+    jax_drift_reference.py rq [--port]), so the fit here runs
+    DRIFT_RQ_RESTARTS restarts."""
+    import torch
+    from bayes_drt_tpu_torch import Inverter, sim
+    out = {}
+    tau_eval = np.logspace(-6, 1, 100)
+    slow = tau_eval > 1e-2
+    for model, kw in (("RQ", dict(n_restarts=DRIFT_RQ_RESTARTS)),
+                      ("x1", dict(n_restarts=2, min_tau_drift=100.0))):
+        freq, Z, times = sim.make_drifting_spectrum(model)
+        inv = Inverter(dtype=torch.float64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inv.drift_map_fit(freq, Z, times, drift_model=model, random_seed=0,
+                          **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fits = inv.distribution_fits["DRT"]
+        resid = float(np.median(np.abs(inv.predict_Z_drift(freq, times) - Z)
+                                / np.abs(Z)))
+        mass = [float(np.trapezoid(inv.predict_distribution(
+            eval_tau=tau_eval, time=t)[slow], np.log(tau_eval[slow])))
+            for t in (0.0, 1800.0)]
+        s_re, s_im = inv.predict_sigma(freq, times=times)
+        rp = inv.predict_Rp(time=1800.0)
+        gates = {"resid": resid < DRIFT_GATE_RESID,
+                 "routing": bool(np.isfinite(s_re).all()
+                                 and np.isfinite(s_im).all()
+                                 and np.isfinite(rp))}
+        if model == "RQ":
+            gates["tau_rq"] = abs(np.log10(fits["tau_rq"] / 0.05)) < 1.0
+            gates["R_rq"] = 0.2 < fits["R_rq"] < 1.0
+            gates["slow_mass_grows"] = mass[1] > mass[0]
+        gates = {k: bool(v) for k, v in gates.items()}
+        out[model] = {"wall_s": wall, "restarts": kw["n_restarts"],
+                      "timings": inv.timings.summary(),
+                      "lbfgs_iters": inv._map_n_iter_lbfgs,
+                      "value": float(inv._map_result.value),
+                      "resid": resid, "slow_mass_t0_t1800": mass,
+                      "Rp": rp, "gates": gates,
+                      **{k: fits[k] for k in ("tau_rq", "R_rq", "tau_x1")
+                         if k in fits}}
+        failed += [f"inverter {model} {k}" for k, v in gates.items() if not v]
+    print("drift inverter: " + json.dumps(out) + f" [{card}]")
+
+
+def peaks_ecm(card, failed):
+    """(c) HN peaks on a MAP Inverter fit of a noisy 2ZARC spectrum with
+    the JAX peak workflow test's gates, the other peak methods, and
+    fit_ecm on the JAX ECM tests' circuits with their gates."""
+    import torch
+    from bayes_drt_tpu_torch import Inverter, ecm, sim
+    freq = np.logspace(6, -2, 81)
+    Z = sim.add_model_noise(sim.reference_circuit("2ZARC", freq), 3,
+                            0.0025, 0.0025, "Macdonald")[0]
+    inv = Inverter()
+    inv.fit(freq, Z, random_seed=0)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inv.fit_peaks()
+    torch.cuda.synchronize()
+    out["fit_peaks_s"] = time.perf_counter() - t0
+    info = inv.extract_peak_info()
+    tau = inv.distributions["DRT"]["tau"]
+    g_peaks = inv.predict_peak_distribution(eval_tau=tau)
+    g_drt = inv.predict_distribution()
+    z_resid = float(np.median(np.abs(inv.predict_peak_Z(freq) - Z)
+                              / np.abs(Z)))
+    dist_err = float(np.max(np.abs(g_peaks - g_drt)) / np.max(g_drt))
+    t_main = float(info["tau_0"][np.argmax(np.abs(info["R"]))])
+    gates = {"sum_R": abs(float(np.sum(info["R"])) - 2.0) < 0.3,
+             "tau_main": 1e-4 < t_main < 1e-1, "distribution": dist_err < 0.3,
+             "Z": z_resid < 0.05}
+    out.update(num_peaks=int(info["num_peaks"]),
+               sum_R=float(np.sum(info["R"])), tau_main=t_main,
+               dist_err_over_max=dist_err, z_resid=z_resid,
+               chi_sq=float(inv.score_peak_fit()))
+    t0 = time.perf_counter()
+    inv.fit_peaks_constrained([1e-3, 1e-2])
+    out["constrained_s"] = time.perf_counter() - t0
+    out["constrained_tau"] = np.exp(inv.distribution_fits["DRT"][
+        "peak_params"][1::4]).tolist()
+    t0 = time.perf_counter()
+    inv.fit_peaks(fit_data=True, frequencies=freq, Z=Z)
+    out["fit_data_s"] = time.perf_counter() - t0
+    zf = inv.predict_peak_Z(freq)
+    out["fit_data_z_resid"] = float(np.median(np.abs(zf - Z) / np.abs(Z)))
+    gates["fit_data"] = bool(np.isfinite(zf).all()
+                             and out["fit_data_z_resid"] < 0.05)
+    # the ECM tests' circuits and gates
+    rng = np.random.default_rng(0)
+    f2 = np.logspace(6, -2, 81)
+    z2 = sim.reference_circuit("2ZARC", f2) + 0.002 * (
+        rng.standard_normal(81) + 1j * rng.standard_normal(81))
+    t0 = time.perf_counter()
+    r2 = ecm.fit_ecm(f2, z2, [("R", {"R": 0.5}),
+                              ("ZARC", {"R": 0.5, "tau": 3e-3, "phi": 0.7}),
+                              ("ZARC", {"R": 0.5, "tau": 3e-2, "phi": 0.7})])
+    out["ecm_2zarc_s"] = time.perf_counter() - t0
+    p = [q for _, q in r2["circuit"]]
+    taus = sorted([p[1]["tau"], p[2]["tau"]])
+    gates["ecm_2zarc"] = bool(
+        abs(p[0]["R"] - 1.0) < 0.05 and abs(np.log10(taus[0] / 1e-3)) < 0.2
+        and abs(np.log10(taus[1] / 1e-2)) < 0.2
+        and all(abs(p[i]["phi"] - 0.8) < 0.05
+                and abs(p[i]["R"] - 1.0) < 0.1 for i in (1, 2))
+        and r2["chi_sq"] < 1e-4)
+    fg = np.logspace(5, -1, 61)
+    t0 = time.perf_counter()
+    rg = ecm.fit_ecm(fg, sim.reference_circuit("Gerischer", fg),
+                     [("R", {"R": 0.5}), ("Gerischer", {"R": 0.5,
+                                                        "tau": 1e-3})])
+    out["ecm_gerischer_s"] = time.perf_counter() - t0
+    pg = dict(rg["circuit"])
+    gates["ecm_gerischer"] = bool(
+        abs(pg["Gerischer"]["tau"] - 1e-2) / 1e-2 < 0.1
+        and abs(pg["R"]["R"] - 1.0) < 0.02)
+    # one LM solve on its own: a two-ZARC peak residual from a perturbed
+    # start, at the peak fits' cap (300) and the Inverter's dtype; the
+    # host checks once an iteration
+    out["lm_solve"] = lm_solve_seconds()
+    gates = {k: bool(v) for k, v in gates.items()}
+    out.update(ecm_2zarc_chi_sq=r2["chi_sq"],
+               ecm_gerischer_tau=pg["Gerischer"]["tau"], gates=gates)
+    print("peaks and ecm: " + json.dumps(out) + f" [{card}]")
+    failed += [f"peaks {k}" for k, v in gates.items() if not v]
+
+
+def peak_residual(dev, dt):
+    """(residual function, start, lb, ub) of a two-ZARC peak fit on
+    logspace(-8, 2, 101), the start 10-20% off the truth."""
+    import torch
+    from bayes_drt_tpu_torch import peaks
+    ptau = np.logspace(-8, 2, 101)
+    x_true = np.array([1.0, np.log(1e-4), 1.0, 0.8,
+                       2.0, np.log(1e-1), 1.0, 0.7])
+    f = dict(device=dev, dtype=dt)
+    t_t = torch.as_tensor(ptau, **f)
+    g_t = peaks.evaluate_fit_distribution(x_true, ptau, **f)
+    w_t = 1.0 / (g_t + 0.05)
+
+    def resid(x):
+        return peaks.peak_fit_residuals(x, t_t, g_t, 3.0, w_t, 0.0, 0.01)
+
+    x0 = torch.as_tensor(x_true * np.array([1.2, 1.0, 0.9, 1.1] * 2),
+                         **f)[None]
+    lb = np.array([0, x_true[1] - 0.25, 0, 0, 0, x_true[5] - 0.25, 0, 0])
+    ub = np.array([np.inf, x_true[1] + 0.25, 1, 1, np.inf,
+                   x_true[5] + 0.25, 1, 1])
+    return resid, x0, lb, ub
+
+
+def lm_solve_seconds():
+    """Seconds, iterations and ms an iteration of one bounded_lm solve of
+    the peak residual on the card in float32 at the peak fits' cap."""
+    import torch
+    from bayes_drt_tpu_torch.infer.lsq import bounded_lm
+    resid, x0, lb, ub = peak_residual("cuda", torch.float32)
+    bounded_lm(resid, x0, lb, ub, max_iter=3)     # first-use warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bounded_lm(resid, x0, lb, ub, max_iter=300)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n = int(res.n_iter[0])
+    return {"seconds": sec, "n_iter": n, "ms_per_iter": 1e3 * sec / n,
+            "grad_norm": float(res.grad_norm[0])}
+
+
+def drift_parity(card, failed):
+    """(d) float64, card against CPU: the drift density and gradient of
+    every model, series and parallel, on 8 fleet cells from numpy-made
+    rows (1e-10 of the largest entry); run_lbfgs on x1 drift rows at
+    MAP_PARITY_SHORT iterations (value within 1e-9 relative, parameters
+    within 1e-6 of each row's largest); bounded_lm on the two-ZARC peak
+    residual at DRIFT_LM_CAP iterations (1e-10); K2 against its plain
+    version on the fleet's unsorted, repeated grid (rtol 1e-10), and its
+    time there."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.lsq import bounded_lm
+    from bayes_drt_tpu_torch.infer.map import run_lbfgs
+    from bayes_drt_tpu_torch.models import drift
+    from bayes_drt_tpu_torch.ops.matrices import (_quad_grid, construct_A,
+                                                  construct_L,
+                                                  default_epsilon,
+                                                  get_tau_basis)
+    from bayes_drt_tpu_torch.ops.quad import drt_quad, drt_quad_plain
+    from bayes_drt_tpu_torch.parallel.batch import drift_data
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        freq, times, zb = sim.make_drift_fleet(8, seed=0)
+        tau = get_tau_basis(np.sort(freq)[::-1])
+        eps = default_epsilon(tau)
+        zs = np.std(np.abs(zb), axis=1) / np.sqrt(len(freq) / 81)
+        T = np.concatenate([(zb / zs[:, None]).real,
+                            (zb / zs[:, None]).imag], axis=1)
+        rng = np.random.default_rng(7)
+        worst = 0.0
+        datas = {}
+        for dist_type in ("series", "parallel"):
+            akw = ({} if dist_type == "series" else
+                   dict(kernel="DDT", dist_type="parallel", bc="blocking"))
+            for dev in ("cpu", "cuda"):
+                f64 = dict(dtype=torch.float64, device=dev)
+                A = [construct_A(freq, part, tau=tau, epsilon=eps, **akw,
+                                 **f64) for part in ("real", "imag")]
+                L = torch.stack([1.5 * s * construct_L(
+                    1 / (2 * np.pi * tau), tau=tau, epsilon=eps, order=o,
+                    **f64) for o, s in ((0, 0.24), (1, 0.16), (2, 0.08))])
+                datas[dist_type, dev] = drift_data(
+                    freq, times, A[0], A[1], L, T, tau, 0.002, 1.0,
+                    DRIFT_KW["min_tau_drift"], 1e4, torch.float64,
+                    torch.device(dev))
+            for model in drift.DRIFT_MODELS:
+                cfg = drift.DriftConfig(model, dist_type, False, len(tau))
+                q = rng.uniform(-2.0, 2.0, (8, drift.drift_flat_dim(cfg)))
+                got = {dev: drift.drift_value_and_grad(
+                    cfg, datas[dist_type, dev])(torch.as_tensor(q,
+                                                                device=dev))
+                    for dev in ("cpu", "cuda")}
+                for i, what in enumerate(("value", "grad")):
+                    want = got["cpu"][i]
+                    err = float((got["cuda"][i].cpu() - want).abs().max()
+                                / want.abs().max())
+                    worst = max(worst, err)
+        out["density_worst_rel"] = worst
+        if not worst <= 1e-10:
+            failed.append("parity density")
+        # run_lbfgs on x1 rows (series) from the same numpy starts
+        cfg = drift.DriftConfig("x1", "series", False, len(tau))
+        q0 = rng.uniform(-2.0, 2.0, (8, drift.drift_flat_dim(cfg)))
+        res = {}
+        for dev in ("cpu", "cuda"):
+            vg = drift.drift_value_and_grad(cfg, datas["series", dev])
+
+            def loss(q, vg=vg):
+                lp, g = vg(q)
+                return -lp, -g
+
+            res[dev] = run_lbfgs(loss, torch.as_tensor(q0, device=dev),
+                                 max_iter=MAP_PARITY_SHORT)
+        v_rel = float(((res["cuda"].value.cpu() - res["cpu"].value).abs()
+                       / res["cpu"].value.abs()).max())
+        p = res["cpu"].params
+        p_rel = float(((res["cuda"].params.cpu() - p).abs().amax(dim=1)
+                       / p.abs().amax(dim=1)).max())
+        same_it = bool(torch.equal(res["cuda"].n_iter.cpu(),
+                                   res["cpu"].n_iter))
+        out["lbfgs"] = {"value_rel": v_rel, "params_rel": p_rel,
+                        "n_iter_equal": same_it}
+        if not (v_rel <= 1e-9 and p_rel <= 1e-6 and same_it):
+            failed.append("parity lbfgs")
+        # bounded_lm on the two-ZARC peak residual
+        lm = {}
+        for dev in ("cpu", "cuda"):
+            resid, x0, lb, ub = peak_residual(dev, torch.float64)
+            lm[dev] = bounded_lm(resid, x0, lb, ub, max_iter=DRIFT_LM_CAP)
+        x_err = float((lm["cuda"].x.cpu() - lm["cpu"].x).abs().max()
+                      / lm["cpu"].x.abs().max())
+        out["lm_x_rel"] = x_err
+        if not (x_err <= 1e-10 and int(lm["cuda"].n_iter[0])
+                == int(lm["cpu"].n_iter[0])):
+            failed.append("parity lm")
+        # K2 on the fleet's unsorted grid, each frequency three times
+        s64 = torch.log(2 * math.pi * torch.as_tensor(freq, device="cuda")[
+            :, None] * torch.as_tensor(tau, device="cuda")[None, :])
+        y, w = _quad_grid(1000, 20.0, torch.float64, "cuda")
+        phiw = torch.exp(-((eps * y) ** 2)) * w
+        k2 = 0.0
+        for part in ("real", "imag"):
+            k2 = max(k2, check_close(f"quad drift grid {part}",
+                                     drt_quad(s64, y, phiw, part),
+                                     drt_quad_plain(s64, y, phiw, part),
+                                     1e-10, 1e-14))
+        out["k2_max_abs_err"] = k2
+        out["k2_ms"] = cuda_ms(lambda: drt_quad(s64, y, phiw, "imag"), 100)
+        out["k2_shape"] = list(s64.shape)
+    finally:
+        torch.set_num_threads(threads)
+    print("drift parity: " + json.dumps(out) + f" [{card}]")
+
+
+def phase_drift(card):
+    """Drift, peaks and ECM (phase 14): (a) the drift fleet and its serial
+    line, (b) the Inverter's drift fits, (c) HN peaks and ECM fits; their
+    K2 launches are read before (d), the float64 card-vs-CPU parity.
+    Returns the launches of (a) to (c) (K2 in every DRT A and ridge A they
+    build; no K1)."""
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    failed = []
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    t0 = time.perf_counter()
+    drift_fleet(card, failed)
+    t_a = time.perf_counter()
+    drift_inverter(card, failed)
+    t_b = time.perf_counter()
+    peaks_ecm(card, failed)
+    t_c = time.perf_counter()
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    drift_parity(card, failed)
+    t_d = time.perf_counter()
+    print("drift phase: " + json.dumps({
+        "seconds": {"fleet": t_a - t0, "inverter": t_b - t_a,
+                    "peaks_ecm": t_c - t_b, "parity": t_d - t_c,
+                    "total": t_d - t0},
+        "launches": launches}) + f" [{card}]")
+    if launches["quad"] == 0 or launches["traj"] != 0:
+        failed.append("launches")
+    if failed:
+        raise AssertionError(f"drift phase failed: {failed}")
+    return launches
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -2525,8 +2956,9 @@ def main(argv):
     sp = phase_multidist(card)
     gr = phase_generic(card, state)
     inv = phase_inverter(card)
+    dr = phase_drift(card)
     launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] + sp[k] + gr[k]
-                + inv[k] for k in launches}
+                + inv[k] + dr[k] for k in launches}
     kernels = [
         dict(name="drt_quad", route="cuda",
              source="bayes_drt_tpu_torch/csrc/quad.cu",

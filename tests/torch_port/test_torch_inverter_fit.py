@@ -268,6 +268,10 @@ def test_check_outliers_flags_corrupted_point():
 
 
 def test_fit_validation_and_unported_methods():
+    """fit's validation errors; the drift and peak methods, which now run
+    (held to the JAX package: its errors before a drift fit, and the
+    peak methods on the same ridge fit at 1e-6); the plotting wrappers,
+    which raise naming item 11f."""
     b = _port()
     with pytest.raises(ValueError, match="Invalid mode"):
         b.fit(FREQ, Z, mode="map")
@@ -281,18 +285,43 @@ def test_fit_validation_and_unported_methods():
                                     "b": {"kernel": "DDT"}}, device="cpu")
     with pytest.raises(ValueError, match="single-distribution"):
         multi.fit(FREQ, Z, init_from_ridge=True)
-    for name, item in (("drift_map_fit", "11d"), ("predict_Z_drift", "11d"),
-                       ("predict_distribution_drift", "11d"),
-                       ("fit_peaks", "11c"), ("fit_peaks_constrained", "11c"),
-                       ("predict_peak_distribution", "11c"),
-                       ("predict_peak_Z", "11c"),
-                       ("extract_peak_info", "11c"),
-                       ("score_peak_fit", "11c"),
-                       ("plot_distribution", "11c"), ("plot_fit", "11c"),
-                       ("plot_residuals", "11c"),
-                       ("plot_full_results", "11c"),
-                       ("plot_peak_fit", "11c")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    a = JaxInverter(basis_freq=BASIS)
+    times = np.linspace(0.0, 1000.0, len(FREQ))
+    for call in (lambda inv: inv.drift_map_fit(FREQ, Z, times[:-1]),
+                 lambda inv: inv.drift_map_fit(FREQ, Z, times,
+                                               drift_model="bogus"),
+                 lambda inv: inv.predict_Z_drift(FREQ, times),
+                 lambda inv: inv.predict_distribution_drift(0.0)):
+        with pytest.raises(ValueError) as want:
+            call(a)
+        with pytest.raises(ValueError) as got:
+            call(b)
+        assert str(got.value) == str(want.value)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        a.ridge_fit(FREQ, Z)
+        b.ridge_fit(FREQ, Z)
+    for inv in (a, b):
+        inv.fit_peaks()
+    np.testing.assert_allclose(b.distribution_fits["DRT"]["peak_params"],
+                               a.distribution_fits["DRT"]["peak_params"],
+                               rtol=1e-6, atol=1e-6)
+    for name, args in (("predict_peak_distribution", ()),
+                       ("predict_peak_Z", (FREQ,)),
+                       ("score_peak_fit", ())):
+        np.testing.assert_allclose(getattr(b, name)(*args),
+                                   getattr(a, name)(*args), rtol=1e-6,
+                                   atol=1e-9, err_msg=name)
+    for k, v in a.extract_peak_info().items():
+        np.testing.assert_allclose(b.extract_peak_info()[k], v, rtol=1e-6)
+    for inv in (a, b):
+        inv.fit_peaks_constrained([1e-3])
+    np.testing.assert_allclose(b.distribution_fits["DRT"]["peak_params"],
+                               a.distribution_fits["DRT"]["peak_params"],
+                               rtol=1e-6, atol=1e-6)
+    for name in ("plot_distribution", "plot_fit", "plot_residuals",
+                 "plot_full_results", "plot_peak_fit"):
+        with pytest.raises(NotImplementedError, match="item 11f"):
             getattr(b, name)()
 
 
