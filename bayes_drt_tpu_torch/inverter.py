@@ -12,9 +12,10 @@ arrays and Python scalars only, so ``save_fit_data`` of either package
 loads into the other.
 
 Drift fits (models/drift.py) and HN peak fits (peaks.py, the LM of
-infer/lsq.py) run on the Inverter's device too. Not ported yet (they
-raise, naming their ROADMAP item): the plotting wrappers (item 11f) and
-``sampler='chees'`` (item 12).
+infer/lsq.py) run on the Inverter's device too. The plotting wrappers
+draw through viz/plotting.py (matplotlib, imported when called). Not
+ported yet (it raises, naming its ROADMAP item): ``sampler='chees'``
+(item 12).
 """
 
 from __future__ import annotations
@@ -51,10 +52,6 @@ from .parallel.batch import (MapObjective, _format_weights_batch, drift_data,
                              drift_pick)
 from .profiling import StageTimer
 from .utils import check_equality, get_outlier_thresh, r2_score, rel_round
-
-_PLOTS = ("is not ported yet (ROADMAP Queue 1 item 11f: the plotting "
-          "wrappers need matplotlib and pandas)")
-
 
 class Inverter:
     """EIS -> DRT/DDT inversion engine (the reference's ``Inverter``).
@@ -1972,22 +1969,77 @@ class Inverter:
             self.f_pred = f_pred_old
             self._recalc_mat = True
 
-    # --- plotting wrappers: item 11f --------------------------------------
+    # --- plotting wrappers (reference: inversion.py:3685-3975) -----------
 
-    def plot_distribution(self, *args, **kwargs):
-        raise NotImplementedError("plot_distribution " + _PLOTS)
+    def _train_df(self):
+        from .io.file_load import construct_eis_df
+        return construct_eis_df(self.f_train, self.Z_train)
 
-    def plot_fit(self, *args, **kwargs):
-        raise NotImplementedError("plot_fit " + _PLOTS)
+    def plot_distribution(self, ax=None, distribution=None, tau_plot=None,
+                          plot_bounds=True, plot_ci=True, **kw):
+        from .viz.plotting import plot_distribution as _plot
+        return _plot(self._train_df(), self, ax=ax, distribution=distribution,
+                     tau_plot=tau_plot, plot_bounds=plot_bounds,
+                     plot_ci=plot_ci, **kw)
 
-    def plot_residuals(self, *args, **kwargs):
-        raise NotImplementedError("plot_residuals " + _PLOTS)
+    def plot_fit(self, axes=None, plot_type="all", bode_cols=None,
+                 plot_data=True, color="k", **kw):
+        from .viz.plotting import plot_fit as _plot
+        return _plot(self._train_df(), self, axes=axes, plot_type=plot_type,
+                     bode_cols=bode_cols, plot_data=plot_data, color=color,
+                     **kw)
 
-    def plot_full_results(self, *args, **kwargs):
-        raise NotImplementedError("plot_full_results " + _PLOTS)
+    def plot_residuals(self, axes=None, unit_scale="auto", plot_ci=True,
+                       **kw):
+        from .viz.plotting import plot_residuals as _plot
+        return _plot(self._train_df(), self, axes=axes, unit_scale=unit_scale,
+                     plot_ci=plot_ci, **kw)
 
-    def plot_peak_fit(self, *args, **kwargs):
-        raise NotImplementedError("plot_peak_fit " + _PLOTS)
+    def plot_full_results(self, axes=None, bode_cols=None, plot_data=True,
+                          color="k", **kw):
+        from .viz.plotting import plot_full_results as _plot
+        return _plot(self._train_df(), self, axes=axes, bode_cols=bode_cols,
+                     plot_data=plot_data, color=color, **kw)
+
+    def plot_peak_fit(self, ax=None, distribution=None, tau_plot=None,
+                      plot_bounds=False, plot_ci=False,
+                      plot_individual_peaks=True, **kw):
+        """Recovered distribution with the HN peak decomposition overlaid
+        (reference: inversion.py:3866-3975)."""
+        import matplotlib.pyplot as plt
+        if distribution is None:
+            distribution = list(self.distributions.keys())[0]
+        if ax is None:
+            _, ax = plt.subplots(figsize=(4.5, 3.2))
+        if tau_plot is None:
+            basis_tau = self.distributions[distribution]["tau"]
+            tau_plot = np.logspace(np.log10(basis_tau.min()),
+                                   np.log10(basis_tau.max()), 200)
+        gamma = self.predict_distribution(distribution, eval_tau=tau_plot)
+        ax.plot(tau_plot, gamma, label="distribution", **kw)
+        if plot_ci and self.fit_type == "bayes":
+            lo = self.predict_distribution(distribution, eval_tau=tau_plot,
+                                           percentile=2.5)
+            hi = self.predict_distribution(distribution, eval_tau=tau_plot,
+                                           percentile=97.5)
+            ax.fill_between(tau_plot, lo, hi, alpha=0.25)
+        if plot_bounds:
+            for fb in (np.max(self.f_train), np.min(self.f_train)):
+                ax.axvline(1.0 / (2 * np.pi * fb), ls=":", c="gray", lw=1)
+        g_fit = self.predict_peak_distribution(eval_tau=tau_plot,
+                                               distribution=distribution)
+        ax.plot(tau_plot, g_fit, ls="--", label="peak fit")
+        if plot_individual_peaks:
+            params = self.distribution_fits[distribution]["peak_params"]
+            for i in range(len(params) // 4):
+                g_i = self.predict_peak_distribution(
+                    eval_tau=tau_plot, distribution=distribution, peak_index=i)
+                ax.plot(tau_plot, g_i, ls=":", lw=1)
+        ax.set_xscale("log")
+        ax.set_xlabel(r"$\tau$ / s")
+        ax.set_ylabel(r"$\gamma$ / $\Omega$")
+        ax.legend()
+        return ax
 
 
 def _drift_rq_ft(model, fits, t):

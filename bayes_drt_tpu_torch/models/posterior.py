@@ -306,6 +306,13 @@ def sigma_tot(cfg: PosteriorConfig, data: PosteriorData, c: dict, pred):
     return torch.sqrt(var)
 
 
+# the scalar columns that lead a fit's monitor draws (fit_spectra_batch's
+# ``monitor_thin``), then gamma at ``gamma_eval_tau`` and, with outliers,
+# sigma_out at ``outlier_monitor_indices``
+MONITOR_SCALARS = ("Rinf", "induc", "sigma_res", "alpha_prop",
+                   "alpha_re", "alpha_im")
+
+
 def outlier_monitor_indices(n: int) -> tuple:
     """Frequency indices at which sigma_out is monitored for rank
     statistics of the ``_outliers`` variants."""

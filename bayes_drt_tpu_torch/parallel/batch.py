@@ -27,8 +27,8 @@ sweep schedule (models/drift.py): seeded and random starts of every cell
 as one batch of L-BFGS rows. A DRT's A matrices come from the
 hand-written quadrature kernel (ops/quad.py).
 
-Not ported yet: ChEES, warm starts, the pooled preconditioner,
-``monitor_thin`` and meshes.
+Not ported yet: ChEES, warm starts, the pooled preconditioner and
+meshes.
 """
 
 from __future__ import annotations
@@ -57,8 +57,9 @@ from ..models.drift import (DRIFT_MODELS, DriftConfig, DriftData,
                             constrain_drift, drift_value_and_grad,
                             init_drift_params, predict_drift_target,
                             ravel_drift, unravel_drift)
-from ..models.posterior import (constrain, flat_dim, group_data,
-                                init_unconstrained, log_density,
+from ..models.posterior import (MONITOR_SCALARS, constrain, flat_dim,
+                                group_data, init_unconstrained, log_density,
+                                outlier_monitor_indices,
                                 posterior_value_and_grad, predict_target,
                                 ravel, unravel)
 from ..ops.matrices import (construct_A, construct_L, construct_M,
@@ -159,7 +160,7 @@ def _percentile(x, q: float, dim: int):
     return a + frac * (s.select(dim, hi) - a)
 
 
-def _make_summarize(cfg, chains, samples):
+def _make_summarize(cfg, chains, samples, monitor_thin: int = 0):
     """Per-spectrum posterior summary on the device for a block of spectra:
     posterior means and percentiles, logp split-Rhat and chain gap,
     divergence/accept statistics, bulk ESS of logp and gamma monitors,
@@ -168,7 +169,14 @@ def _make_summarize(cfg, chains, samples):
     gamma bands, the posterior-predictive impedance (the mean over draws of
     each draw's prediction, through the parallel inversion) and the
     posterior-mean coefficients of every further distribution
-    (``coef_<i>``)."""
+    (``coef_<i>``).
+
+    ``monitor_thin`` > 0 adds ``monitor_draws`` (Bc, C * (S // thin),
+    n_mon), chain-major: every ``monitor_thin``-th draw of each chain
+    (Rinf, induc, sigma_res, alpha_prop, alpha_re, alpha_im, gamma at the
+    ``gamma_eval_tau`` points, and sigma_out at
+    ``outlier_monitor_indices`` with outliers), the raw material of rank
+    statistics (simulation-based calibration)."""
 
     def summarize(dat, draws, info, phi_mon, phi_eval):
         bc, _, _, d = draws.shape                     # (Bc, C, S, D)
@@ -233,6 +241,15 @@ def _make_summarize(cfg, chains, samples):
             preds = predict_target(cfg, dat, c)
             out["z_hat_mean"] = preds.mean(dim=1)
             out["z_hat_std"] = preds.std(dim=1, correction=0)
+        if monitor_thin:
+            td = draws[:, :, monitor_thin - 1::monitor_thin, :]
+            cm = constrain(cfg, dat, unravel(cfg, td.reshape(bc, -1, d)))
+            cols = [torch.stack([cm[s] for s in MONITOR_SCALARS], dim=-1),
+                    cm["x_0"] @ phi_eval.T]
+            if cfg.outliers:
+                idx = list(outlier_monitor_indices(cm["sigma_out"].shape[-1]))
+                cols.append(cm["sigma_out"][..., idx])
+            out["monitor_draws"] = torch.cat(cols, dim=-1)
         for i in range(1, len(cfg.dists)):
             out[f"coef_{i}"] = c[f"x_{i}"].mean(dim=1)
         return out
@@ -487,9 +504,6 @@ def _per_spectrum(x, b, chains):
     return x.reshape((x.shape[0], b, chains) + x.shape[2:]).movedim(0, 2)
 
 
-_ITEM_10 = "is not ported yet (ROADMAP Queue 1 item 10)"
-
-
 def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                       basis_freq=None, epsilon=None, nonneg: bool = False,
                       outliers: bool = False, chains: int = 4,
@@ -589,11 +603,18 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     sampler's graph captures (``diagnostics['capture_s']``) and the
     escalation refit's seconds (``diagnostics['refit_s']``).
 
+    ``monitor_thin`` > 0 (sample mode) stores every ``monitor_thin``-th
+    draw of each chain's monitors under ``diagnostics['monitor_draws']``
+    (B, chains * (samples // monitor_thin), n_mon), chain-major: Rinf and
+    induc in impedance units, sigma_res and the three alpha in the scaled
+    space, gamma at ``gamma_eval_tau`` in the first distribution's units,
+    sigma_out at ``outlier_monitor_indices`` in impedance units (the
+    simulation-based calibration's rank statistics, sbc.py).
+
     ``basis`` names the RBF family (construct_L, like the JAX package's,
     builds the penalty's orders 1 and 2 for 'gaussian' only, so other
     bases raise its ValueError). Not ported (they raise, naming their
-    ROADMAP item): ``monitor_thin`` (item 10); ChEES, ``warm_start`` and
-    ``precondition`` (item 12).
+    ROADMAP item): ChEES, ``warm_start`` and ``precondition`` (item 12).
     """
     if quality is not None:
         if quality not in QUALITY_PRESETS:
@@ -615,8 +636,6 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if mode not in ("sample", "optimize"):
         raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
                          "'optimize'")
-    if monitor_thin:
-        raise NotImplementedError(f"monitor_thin {_ITEM_10}")
     dists = _normalize_distributions(distributions)
     n_dists = len(dists)
     single_parallel = (n_dists == 1 and next(iter(dists.values()))[
@@ -715,10 +734,10 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                                gen, timing, flat_args)
     mark("sample")
     out = _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
-                            phi_mon, phi_eval)
+                            phi_mon, phi_eval, monitor_thin)
     mark("summary")
     result = _sampled_result(cfg, out, z_scales[:b_real], dists_norm, tau,
-                             eps, basis)
+                             eps, basis, n_eval=phi_eval.shape[0])
     diagnostics = result.diagnostics
     if "z_hat_mean" in diagnostics:
         # the training grid (descending), where predict_Z_batch serves the
@@ -752,8 +771,9 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                 outliers=outliers, chains=chains, warmup=warmup,
                 samples=samples, random_seed=random_seed + 1,
                 distributions=distributions, basis=basis,
-                gamma_eval_tau=gamma_eval_tau, z_scale=sub_z_scale,
-                sigma_min=sigma_min, dtype=dtype, escalate=False,
+                gamma_eval_tau=gamma_eval_tau, monitor_thin=monitor_thin,
+                z_scale=sub_z_scale, sigma_min=sigma_min, dtype=dtype,
+                escalate=False,
                 timing=timing, device=dev, **esc_kw)
             if timing:
                 diagnostics["refit_s"] = time.perf_counter() - t_refit
@@ -823,11 +843,11 @@ def _run_sampler(sampler, vg, q0, chains, warmup, samples, cfg, gen,
 
 
 def _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
-                      phi_mon, phi_eval):
+                      phi_mon, phi_eval, monitor_thin: int = 0):
     """The posterior summary of the first ``b_real`` spectra, in blocks of
     _SUMMARY_BLOCK spectra (per-spectrum data sliced with the draws), as
     numpy arrays."""
-    summarize = _make_summarize(cfg, chains, samples)
+    summarize = _make_summarize(cfg, chains, samples, monitor_thin)
     blocks = []
     for i in range(0, b_real, _SUMMARY_BLOCK):
         sl = slice(i, min(i + _SUMMARY_BLOCK, b_real))
@@ -838,10 +858,11 @@ def _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
             for k in blocks[0]}
 
 
-def _sampled_result(cfg, out, z_scales, dists_norm, tau, eps, basis):
+def _sampled_result(cfg, out, z_scales, dists_norm, tau, eps, basis,
+                    n_eval=0):
     """BatchFitResult of a sample-mode summary: coefficients, bands, gamma
-    bands and the posterior-predictive impedance back in physical
-    units."""
+    bands, the posterior-predictive impedance and the monitor draws (with
+    ``n_eval`` gamma columns) back in physical units."""
     diagnostics = _rescaled_diagnostics(cfg, out, z_scales, dists_norm)
     scale0 = _coef_scale(cfg, 0, z_scales)
     for k_ge in ("gamma_eval_mean", "gamma_eval_lo", "gamma_eval_hi"):
@@ -850,6 +871,16 @@ def _sampled_result(cfg, out, z_scales, dists_norm, tau, eps, basis):
     for k_z in ("z_hat_mean", "z_hat_std"):
         if k_z in diagnostics:
             diagnostics[k_z] = diagnostics[k_z] * z_scales[:, None]
+    if "monitor_draws" in diagnostics:
+        # Rinf, induc | sigma_res, alpha_prop, alpha_re, alpha_im (left in
+        # the scaled space) | gamma at the eval taus (first distribution's
+        # scale) | sigma_out (an impedance-space scale, like Rinf)
+        md = diagnostics["monitor_draws"].copy()
+        n_s = len(MONITOR_SCALARS)
+        md[:, :, :2] *= z_scales[:, None, None]
+        md[:, :, n_s:n_s + n_eval] *= scale0[:, None, :]
+        md[:, :, n_s + n_eval:] *= z_scales[:, None, None]
+        diagnostics["monitor_draws"] = md
     return BatchFitResult(
         coef=out["coef"] * scale0, r_inf=out["r_inf"] * z_scales,
         inductance=out["induc"] * z_scales,
@@ -1520,7 +1551,8 @@ def ridge_fit_spectra_batch(frequencies, Z_batch, basis_freq=None,
         res = solve_at(cfg, data, grid[idx])
         idx = idx.cpu().numpy()
         recv, imcv = recv.cpu().numpy(), imcv.cpu().numpy()
-        diagnostics.update(cv_lambda=grid.cpu().numpy()[idx].astype(float),
+        # the caller's grid value (not its rounding to the fit's dtype)
+        diagnostics.update(cv_lambda=np.asarray(cv_lambdas, float)[idx],
                            cv_recv=recv, cv_imcv=imcv, cv_totcv=recv + imcv)
         n_boundary = int(np.sum((idx == 0) | (idx == len(grid) - 1)))
         if n_boundary:

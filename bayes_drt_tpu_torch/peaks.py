@@ -16,7 +16,6 @@ import math
 
 import numpy as np
 import torch
-from scipy.signal import find_peaks
 
 from ._numerics import resolve_device, resolve_dtype
 from .infer.lsq import bounded_lm
@@ -177,6 +176,9 @@ def fit_pos_peaks(tau, gamma, Rp, weights=None, check_shoulders=False,
                   l1_penalty=0, l2_penalty=0.01, *, device=None, dtype=None):
     """Detect and fit positive HN peaks (reference: peak_fit.py:131-317).
     Returns the fitted (R, ln t0, alpha, beta) per peak, numpy."""
+    # imported here: scipy.signal takes seconds to import, which every
+    # process importing the package (each CLI command) would pay
+    from scipy.signal import find_peaks
     dev, dt = resolve_device(device), resolve_dtype(dtype)
     tau = np.asarray(tau, float)
     gamma = np.asarray(gamma, float)

@@ -273,3 +273,31 @@ def make_drifting_spectrum(model="RQ", seed=0):
     Z = Z + 0.001 * (rng.standard_normal(len(Z))
                      + 1j * rng.standard_normal(len(Z)))
     return freq, Z, times
+
+
+def write_gamry_dta(path, freq, Z, start="03/15/2021 14:30:00"):
+    """Write a spectrum as a Gamry EXPLAIN (.DTA) potentiostatic EIS file:
+    the header tags (DATE and TIME of ``start``, "%m/%d/%Y %H:%M:%S"), the
+    ZCURVE table's tab-separated header and units lines (Latin-1, with the
+    degree sign) and one row per frequency, each led by a tab. This is
+    the layout the C++ loader (native/loader.cpp) and io.read_eis parse;
+    the numbers are written by their repr."""
+    freq = np.asarray(freq, float)
+    Z = np.asarray(Z)
+    date, time = start.split(" ")
+    cols = ("Pt", "Time", "Freq", "Zreal", "Zimag", "Zsig", "Zmod", "Zphz",
+            "Idc", "Vdc", "IERange")
+    units = ("#", "s", "Hz", "ohm", "ohm", "V", "ohm", "°", "A", "V",
+             "#")
+    lines = ["EXPLAIN", "TAG\tEISPOT",
+             "TITLE\tLABEL\tPotentiostatic EIS\tTest &Identifier",
+             f"DATE\tLABEL\t{date}\tDate", f"TIME\tLABEL\t{time}\tTime",
+             "ZCURVE\tTABLE", "\t" + "\t".join(cols),
+             "\t" + "\t".join(units)]
+    for i, (f, z) in enumerate(zip(freq, Z)):
+        row = (i, float(i), f, z.real, z.imag, 1.0, abs(z),
+               float(np.degrees(np.arctan2(z.imag, z.real))), 0.0, 0.0, 5)
+        lines.append("\t" + "\t".join(repr(float(v)) if isinstance(v, float)
+                                      else str(v) for v in row))
+    with open(path, "w", encoding="latin1", newline="\r\n") as fh:
+        fh.write("\n".join(lines) + "\n")

@@ -23,17 +23,18 @@ line is printed):
   5. the trajectory kernel against the plain trajectory in float32 at the
      main path's final sampler states, and its time per launch.
   6. the escalation path at full width: B=64 noisy ZARC spectra through
-     the same SHMC fit with every spectrum forced through the refit (NUTS
+     the same SHMC fit at 4 x (100 + 150) with every spectrum forced
+     through the refit (NUTS
      max_depth=8, tree_scan, seeded from the batched hyper-lambda ridge);
      the splice, the gate figures of the 64 and the seconds of the ridge,
      the NUTS draws and the call.
   7. the default call, fit_spectra_batch(freq, Z) with no sampler
      arguments (NUTS max_depth 10, escalation on) on the main path's 1024
-     spectra at a budget cut to 4 x (30 + 10): shape, values, mask,
+     spectra at a budget cut to 4 x (20 + 10): shape, values, mask,
      launches, and the seconds of the call, of a warmup draw and of a
      draw after warmup.
-  8. NUTS draw times from the main path's final states at R=256 and
-     R=4096 rows, eager and replayed as CUDA graphs: max_depth 8 static
+  8. NUTS draw times from the main path's final states at R=4096 rows,
+     eager and replayed as CUDA graphs: max_depth 8 static
      (the refit's tree_scan) and max_depth 10 with the early stop (the
      default NUTS path).
   9. device parity in float64: the batched ridge on 8 spectra and one NUTS
@@ -89,13 +90,14 @@ line is printed):
      (c) the single-parallel ridge seed: 16 blocking-DDT spectra through
      the default escalation, the gate forced, so each is refitted by NUTS
      md8 from the Inverter's admittance ridge; (d) Inverter.fit: MAP
-     twice, NUTS md10 twice at a cut budget and once at the JAX package's
-     Inverter test budget (there also rhat_max < 5), SHMC, each gated as
+     twice, NUTS md10 at a cut budget on a second same-shape spectrum,
+     then at the JAX package's Inverter test budget on the first (there
+     also rhat_max < 5), SHMC, each gated as
      the JAX package's Inverter tests, check_outliers and a save/load
      round trip.
   14. drift, peaks and ECM: (a) the drift bench's fleet (64 cells, N=93,
      K=81, x1, 2 restarts, cap 1500, float32) through
-     drift_fit_spectra_batch twice, gated on finite coefficients, every
+     drift_fit_spectra_batch once, gated on finite coefficients, every
      cell's median relative Z residual (< 0.05), tau_1 within its bounds
      and the median over cells (<= 1.5x the JAX package's own), then the
      bench's serial line (Inverter.drift_map_fit of one cell, twice) and
@@ -110,8 +112,25 @@ line is printed):
      gradient (all eight models, series and parallel), run_lbfgs on drift
      rows, bounded_lm on a peak residual, and K2 against its plain
      version on the fleet's unsorted, repeated grid.
-  15. one JSON line listing both kernels with their launches (phases 4,
-     6, 7, 10, 11, 12, 13 and 14) and times; K2's bound counts the function's
+  15. simulation-based calibration and the command line: (a) SBC at the
+     JAX package's production configuration (benchmarks/sbc.py): 256
+     exact prior-predictive Series datasets (the (ups_raw, ds) marginal by
+     NUTS md7 at warmup 500 on the card, x by Cholesky), one production
+     fit (SHMC 4 x (150 + 250), z_scale 1, no escalation, unthinned
+     monitors), the stride from the monitors' measured ESS, and the 10
+     monitors' ranks, each gated on a 16-bin chi-square p > 0.005 and no
+     DKW ECDF violation; float64 card-vs-CPU parity of the marginal's
+     value and gradient and of one NUTS transition of it as CUDA graphs;
+     (b) the CLI as a user runs it (python -m bayes_drt_tpu_torch fit, a
+     subprocess each) on 1,024 noisy ZARC CSVs on two grids, four Gamry
+     .DTA files and a corrupt file: sample mode (the defaults), optimize,
+     ridge with and without --ridge-cv, --peaks on 8 files, gated on exit
+     codes, one Gout file a spectrum, the corrupt file's load_error row
+     and the recovered gamma against the analytic ZARC DRT; one
+     sample-mode bucket under profiling.trace, whose Chrome trace must
+     name the trajectory kernel once a draw.
+  16. one JSON line listing both kernels with their launches (phases 4,
+     6, 7, 10, 11, 12, 13, 14 and 15) and times; K2's bound counts the function's
      least fp64 work a node, and the count its compiled loop issues
      (cuobjdump -sass) is printed beside it.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -121,6 +140,7 @@ The last line of stdout is {"ok": true, "device": {...}}.
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -140,16 +160,23 @@ GATE_COVERAGE = 0.93      # pointwise 95% band coverage
 GATE_MIN_ESS = 3.5        # median per-spectrum min-ESS
 GATE_LOGP_RHAT = 4.0      # median per-spectrum logp split-Rhat
 # the escalation phase: spectra, and its budget (the bench's unless cut to
-# keep the smoke's time; a cut is printed)
+# keep the smoke's time; a cut is printed): 4 x (100 + 150) since the SBC
+# and CLI phase came (phase 11's NUTS md8 runs 4 x (100 + 100))
 B_ESC = 64
-ESC_WARMUP = WARMUP
-ESC_SAMPLES = SAMPLES
+ESC_WARMUP = 100
+ESC_SAMPLES = 150
 NUTS_DEPTH = 8            # the refit's max_tree_depth
+# phase 9's float64 NUTS transition: the card runs the main path's 4,096
+# rows, the CPU reference 1,024 of them, one a spectrum (chain i % 4 of
+# spectrum i), since the SBC and CLI phase came (its CPU side on all
+# 4,096 took 26.4 s, the whole smoke then 1,106 to 1,141 s of its 1,200)
+PARITY_CPU_ROWS = 1024
 # the default call's phase: the main path's B, and a budget cut from the
 # default 4 x (500 + 500) to keep the smoke's time (4 x (60 + 20) until
-# the generic SHMC and ragged phase came)
+# the generic SHMC and ragged phase came, 4 x (30 + 10) until the SBC
+# and CLI phase came)
 B_DEFAULT = B
-DEFAULT_WARMUP = 30
+DEFAULT_WARMUP = 20
 DEFAULT_SAMPLES = 10
 
 # the MAP phase: the default form's caps and restarts, the production
@@ -180,6 +207,9 @@ SP_WARMUP = 100
 SP_SAMPLES = 100
 SP_DEPTH = 8
 SP_B_SMALL = 64
+# the float64 NUTS transition parity's spectra (of SP_B_SAMPLE; 256 rows:
+# the CPU side of 1,024 rows was most of the phase's ~65 s of parity)
+SP_PARITY_NUTS_B = 64
 SP_SMALL_ITER = 1000
 SP_GATE_Z = 0.02          # median |Z_hat - Z_true| / |Z_true|
 SP_GATE_DIV = 0.05        # median divergence rate
@@ -294,6 +324,39 @@ DRIFT_LM_CAP = 20
 # element's basin on 7 of 10 seeds in the JAX package
 # (scripts/jax_drift_reference.py rq)
 DRIFT_RQ_RESTARTS = 63
+
+# phase 15 (a): simulation-based calibration at the JAX package's
+# production SBC configuration (benchmarks/sbc.py:44-60, 82-84, 126-134):
+# the Series model on logspace(6, -2, 81), K=101; the prior marginal by
+# NUTS at warmup 500, max depth 7; the production SHMC fit at 4 x
+# (150+250), z_scale 1, no escalation, unthinned monitors, then the
+# stride from the measured monitor ESS (benchmarks/sbc.py's auto-thin); the
+# JAX package's criterion: 16-bin chi-square p > 0.005 and no DKW ECDF
+# violation on each of the 10 monitors. 256 datasets, the documented
+# alternative of benchmarks/sbc.py:24, not 512: at 512 the
+# whole smoke would pass ~1,150 s of its 1,200 (phase 15 alone took
+# 267.5 s, 512 datasets calibrating 10/10, on an NVIDIA H100 80GB HBM3 at
+# 700 W)
+SBC_SETS = 256
+SBC_PRIOR_WARMUP = 500
+SBC_PRIOR_DEPTH = 7
+SBC_GE_TAU = np.array([1e-4, 1e-2, 1.0, 1e2])
+SBC_MONITORS = ("Rinf", "induc", "sigma_res", "alpha_prop", "alpha_re",
+                "alpha_im", "gamma(1e-4)", "gamma(1e-2)", "gamma(1)",
+                "gamma(1e2)")
+SBC_BINS = 16
+SBC_P_MIN = 0.005
+SBC_PARITY_ROWS = 64
+SBC_PARITY_NUTS_ROWS = 16
+# phase 15 (b): the CLI on a directory of 1,024 noisy ZARC spectra on two
+# grids (CSV), four Gamry .DTA files on the first grid and a corrupt file
+CLI_GRIDS = ((768, (6, -2, 81)), (256, (5, -1, 61)))
+CLI_DTA = 4
+CLI_PEAK_FILES = 8
+CLI_GATE_MAP_P90 = 0.08     # the JAX MAP tests' bar
+CLI_GATE_RIDGE_RP = 0.15    # tests/test_cli.py:44-45, every spectrum's Rp
+CLI_GATE_CV_RMSE = 0.10     # tests/test_cli.py:98-101
+CLI_PEAK_RMSE_REL = 0.15    # tests/test_cli.py:136
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -920,9 +983,10 @@ def phase_default(card):
     return launches
 
 
-def nuts_rows(dtype, state, R, device="cuda"):
-    """The first R of the main path's final chain states as NUTS rows:
-    (value_and_grad, q, logp, grad, eps, m_inv) on ``device``."""
+def nuts_rows(dtype, state, R, device="cuda", idx=None):
+    """The first R of the main path's final chain states (those at the
+    indices ``idx`` if given) as NUTS rows: (value_and_grad, q, logp,
+    grad, eps, m_inv) on ``device``."""
     import torch
     from bayes_drt_tpu_torch.infer.shmc_flat import flat_value_and_grad
     args = traj_inputs(dtype, state)
@@ -931,15 +995,16 @@ def nuts_rows(dtype, state, R, device="cuda"):
         from bayes_drt_tpu_torch.infer.shmc_flat import make_flat_shared
         sh = make_flat_shared(*(t.to(device) for t in (sh.A, sh.L, sh.vecs,
                                                        sh.scal)))
-    tgt = tgt[:R].to(device)
+    sel = slice(R) if idx is None else torch.as_tensor(idx)
+    tgt = tgt[sel].to(device)
 
     def vg(q):
         return flat_value_and_grad(spec, sh.A, sh.L, sh.vecs, sh.scal, q,
                                    tgt)
 
-    q = args[4][:R].to(device)
+    q = args[4][sel].to(device)
     lp, g = vg(q)
-    return vg, q, lp, g, args[8][:R].to(device), args[9][:R].to(device)
+    return vg, q, lp, g, args[8][sel].to(device), args[9][sel].to(device)
 
 
 def nuts_noise_np(R, D, depth, seed, dtype, device):
@@ -960,10 +1025,13 @@ def nuts_noise_np(R, D, depth, seed, dtype, device):
 
 def phase_nuts_timing(card, state):
     """Seconds per NUTS draw in float32 from the main path's final states
-    at R=256 and R=4096 rows, eager and replayed as CUDA graphs: max_depth
-    8 with the static tree (the refit's form) and max_depth 10 stopping
-    once no row is alive (the default NUTS path's form). The graphs'
-    outputs must equal the eager ones on the same inputs."""
+    at R=4096 rows, eager and replayed as CUDA graphs: max_depth 8 with
+    the static tree (the refit's form) and max_depth 10 stopping once no
+    row is alive (the default NUTS path's form). The graphs' outputs must
+    equal the eager ones on the same inputs. (R=256 ran too until the SBC
+    and CLI phase came: 0.150 / 0.489 s a graphed draw, md8 / md10, on
+    an NVIDIA H100 80GB HBM3 at 700 W; phase 6's refit times md8 at that
+    R.)"""
     import torch
     from bayes_drt_tpu_torch.infer.nuts import (GraphedTree,
                                                 nuts_transition_flat)
@@ -978,7 +1046,7 @@ def phase_nuts_timing(card, state):
         return (time.perf_counter() - t0) / reps, res
 
     out = {}
-    for R in (256, B * CHAINS):
+    for R in (B * CHAINS,):
         vg, q, lp, g, eps, m_inv = nuts_rows(torch.float32, state, R)
         for depth, scan in ((NUTS_DEPTH, True), (10, False)):
             noise = nuts_noise_np(R, q.shape[1], depth, 5, torch.float32,
@@ -1009,12 +1077,15 @@ def phase_nuts_timing(card, state):
           f"[{card}]")
 
 
-def nuts_transition_parity(card, label, R, depth, seed, rows):
+def nuts_transition_parity(card, label, R, depth, seed, rows, cpu_idx=None):
     """One float64 NUTS transition (max_depth ``depth``, noise from numpy
     ``seed``) of the rows ``rows(device)`` gives ((value_and_grad, q, logp,
     grad, eps, m_inv) on that device): on the card replayed as CUDA graphs
     (GraphedTree, the static tree), which must equal the eager early-stop
-    form there bit for bit, against eager on the CPU. A row agrees when its
+    form there bit for bit, against eager on the CPU. With ``cpu_idx``
+    the card runs all R rows and the CPU (whose ``rows`` gives those rows
+    only) the rows at ``cpu_idx``, which are compared: rows are
+    independent, each its own tree and noise. A row agrees when its
     tree (n_leapfrog, depth, divergence) is the same, its q is within 1e-9
     of the row's largest entry, and its logp and grad are within 1e-9 of
     the CPU's evaluation at the card's own selected point (after up to 255
@@ -1022,12 +1093,16 @@ def nuts_transition_parity(card, label, R, depth, seed, rows):
     in q, which a stiff posterior turns into ~1e-7 in grad; printed).
     Prints every differing row and returns their count."""
     import torch
-    from bayes_drt_tpu_torch.infer.nuts import (GraphedTree,
+    from bayes_drt_tpu_torch.infer.nuts import (GraphedTree, NUTSNoise,
                                                 nuts_transition_flat)
     outs = {}
     for dev in ("cuda", "cpu"):
         vg, q, lp, g, eps, m_inv = rows(dev)
         noise = nuts_noise_np(R, q.shape[1], depth, seed, torch.float64, dev)
+        if dev == "cpu" and cpu_idx is not None:
+            i = torch.as_tensor(cpu_idx)
+            noise = NUTSNoise(noise.z[i], noise.go_right[:, i],
+                              noise.swap_u[:, i], noise.leaf_u[:, i])
         t0 = time.perf_counter()
         if dev == "cuda":
             tree = GraphedTree(vg, q, lp, g, noise, eps, m_inv, depth, 1000.0)
@@ -1053,6 +1128,9 @@ def nuts_transition_parity(card, label, R, depth, seed, rows):
         print(f"{label}: {dev} transition {time.perf_counter() - t0:.2f} s"
               + (" (capture, replay and eager)" if dev == "cuda" else ""))
     c, h = outs["cuda"], outs["cpu"]
+    if cpu_idx is not None:
+        c = [t[torch.as_tensor(cpu_idx)] for t in c]
+        R = len(cpu_idx)
     same = (c[4] == h[4]) & (c[5] == h[5]) & (c[7] == h[7])
 
     def rel_rows(a, b):
@@ -1090,10 +1168,11 @@ def phase_parity(card, state):
     largest, iteration counts equal) and one NUTS transition at R=4096,
     D=211, max_depth 8 with the same noise, on the card as CUDA graphs
     (GraphedTree, the refit's static form, equal bit for bit to the eager
-    form there) and on the CPU eagerly: n_leapfrog, depth and divergence
-    identical, q within 1e-9 of the row's largest entry, and logp and grad
-    within 1e-9 of the CPU's evaluation at the card's point, on at least
-    99.9% of rows; every differing row is printed."""
+    form there) and on the CPU eagerly on PARITY_CPU_ROWS of those rows,
+    one a spectrum: n_leapfrog, depth and divergence identical, q within
+    1e-9 of the row's largest entry, and logp and grad within 1e-9 of the
+    CPU's evaluation at the card's point, on at least 99.9% of the rows
+    compared; every differing row is printed."""
     import torch
     from bayes_drt_tpu_torch import sim
     from bayes_drt_tpu_torch.parallel import ridge_fit_spectra_batch
@@ -1119,11 +1198,15 @@ def phase_parity(card, state):
         raise AssertionError("parity ridge: card and CPU differ")
 
     R = B * CHAINS
+    step = R // PARITY_CPU_ROWS
+    idx = np.arange(PARITY_CPU_ROWS) * step + np.arange(PARITY_CPU_ROWS) % step
     bad = nuts_transition_parity(
         card, "parity nuts", R, NUTS_DEPTH, 6,
-        lambda dev: nuts_rows(torch.float64, state, R, dev))
-    if bad > 0.001 * R:
-        raise AssertionError(f"parity nuts: {bad} of {R} rows differ")
+        lambda dev: nuts_rows(torch.float64, state, R, dev,
+                              None if dev == "cuda" else idx), idx)
+    if bad > 0.001 * PARITY_CPU_ROWS:
+        raise AssertionError(f"parity nuts: {bad} of {PARITY_CPU_ROWS} "
+                             "rows differ")
 
 
 def map_figures(res, tau, gt, rp):
@@ -1590,9 +1673,10 @@ def sp_parity(card, freq, dists, zb, sampled):
     the complex A' + j A''; (b)
     the Series-Parallel autograd value and gradient of R=1024 numpy-made
     rows (logp within 1e-10 relative, gradient normwise within 1e-9 a
-    row); (c) one NUTS transition (md8) at R=1024 from the sampled fit's
-    final states, by nuts_transition_parity (phase 9's criterion), on at
-    least 99.9% of rows."""
+    row); (c) one NUTS transition (md8) of the first SP_PARITY_NUTS_B
+    spectra's chains (R=256) from the sampled fit's final states, by
+    nuts_transition_parity (phase 9's criterion), on at least 99.9% of
+    rows."""
     import torch
     from bayes_drt_tpu_torch.models.posterior import posterior_value_and_grad
     from bayes_drt_tpu_torch.ops.matrices import construct_A
@@ -1632,7 +1716,8 @@ def sp_parity(card, freq, dists, zb, sampled):
 
     f_desc = np.sort(freq)[::-1]
     zd = np.ascontiguousarray(zb[:SP_B_SAMPLE, np.argsort(freq)[::-1]])
-    vgs, data = {}, {}
+    vgs, vgs_nuts = {}, {}
+    r_nuts = SP_PARITY_NUTS_B * CHAINS
     for dev in ("cuda", "cpu"):
         _, _, _, cfg, dat, _ = batch._build_shared(
             f_desc, mode="sample", distributions=dists, nonneg=True,
@@ -1641,6 +1726,7 @@ def sp_parity(card, freq, dists, zb, sampled):
                                        dev, dists)
         tgt = tgt.repeat_interleave(CHAINS, dim=0)
         vgs[dev] = posterior_value_and_grad(cfg, dat, tgt)
+        vgs_nuts[dev] = posterior_value_and_grad(cfg, dat, tgt[:r_nuts])
     R = SP_B_SAMPLE * CHAINS
     q_np = np.random.default_rng(12).uniform(-2.0, 2.0, (R, 4 * 81 + 12))
     res = {dev: [t.cpu() for t in vgs[dev](torch.tensor(q_np, device=dev))]
@@ -1656,18 +1742,18 @@ def sp_parity(card, freq, dists, zb, sampled):
         failed.append("value_and_grad")
 
     d = sampled.diagnostics
-    q0 = np.asarray(d["state_q"], np.float64).reshape(R, -1)
-    m0 = np.asarray(d["state_inv_mass"], np.float64).reshape(R, -1)
-    e0 = np.asarray(d["state_step_size"], np.float64).reshape(R)
+    q0 = np.asarray(d["state_q"], np.float64).reshape(R, -1)[:r_nuts]
+    m0 = np.asarray(d["state_inv_mass"], np.float64).reshape(R, -1)[:r_nuts]
+    e0 = np.asarray(d["state_step_size"], np.float64).reshape(R)[:r_nuts]
 
     def rows(dev):
         q = torch.tensor(q0, device=dev)
-        return (vgs[dev], q, *vgs[dev](q), torch.tensor(e0, device=dev),
-                torch.tensor(m0, device=dev))
+        return (vgs_nuts[dev], q, *vgs_nuts[dev](q),
+                torch.tensor(e0, device=dev), torch.tensor(m0, device=dev))
 
-    bad = nuts_transition_parity(card, "parity sp nuts", R, SP_DEPTH, 13,
-                                 rows)
-    if bad > 0.001 * R:
+    bad = nuts_transition_parity(card, "parity sp nuts", r_nuts, SP_DEPTH,
+                                 13, rows)
+    if bad > 0.001 * r_nuts:
         failed.append("nuts")
     if failed:
         raise AssertionError(f"series-parallel parity failed: {failed}")
@@ -2402,8 +2488,10 @@ def inverter_parallel_escalation(card, failed):
 def inverter_fits(card, freq, z, tau_gt, rp, failed):
     """(d) Inverter.fit on the card (float32): the default MAP (2
     restarts, cap 4000, polish) twice on two same-shape spectra, NUTS
-    md10 at a cut budget twice and once at the JAX package's Inverter
-    test budget, SHMC at the default budget (both samplers non-centered);
+    md10 at a cut budget on the second spectrum, then at the JAX
+    package's Inverter test budget on the first (so the second NUTS fit
+    has the first one's shape and other data), SHMC at the default budget
+    (both samplers non-centered);
     each gated as the JAX package's Inverter tests gate them (ess_min >
     INV_GATE_ESS_MIN; rhat_max < INV_GATE_RHAT_MAX at the test budget);
     check_outliers on a corrupted point; a save/load round trip through
@@ -2418,12 +2506,8 @@ def inverter_fits(card, freq, z, tau_gt, rp, failed):
           f" from 2x(200+200); SHMC at the default 2x(200+200) [{card}]")
     out = {}
     runs = (("map", z, {}), ("map_second", zb2[0], {}),
-            ("nuts", z, dict(mode="sample", warmup=INV_NUTS_WARMUP,
-                             samples=INV_NUTS_SAMPLES, ncp=True)),
-            ("nuts_second", zb2[0], dict(mode="sample",
-                                         warmup=INV_NUTS_WARMUP,
-                                         samples=INV_NUTS_SAMPLES,
-                                         ncp=True)),
+            ("nuts", zb2[0], dict(mode="sample", warmup=INV_NUTS_WARMUP,
+                                  samples=INV_NUTS_SAMPLES, ncp=True)),
             ("nuts_test_budget", z, dict(mode="sample",
                                          warmup=INV_NUTS_TEST_WARMUP,
                                          samples=INV_NUTS_TEST_SAMPLES,
@@ -2532,15 +2616,17 @@ def phase_inverter(card):
 
 
 def drift_fleet(card, failed):
-    """(a) the drift bench's fleet through drift_fit_spectra_batch, twice
-    (random_seed 0, then 1), gated; then its serial line: one
+    """(a) the drift bench's fleet through drift_fit_spectra_batch, once
+    (random_seed 1, whose median the JAX package's own figure is taken
+    at; random_seed 0 ran too until the SBC and CLI phase came, 21 s on
+    an NVIDIA H100 80GB HBM3 at 700 W), gated; then its serial line: one
     Inverter.drift_map_fit of cell 0 with the same arguments, twice."""
     import torch
     from bayes_drt_tpu_torch import Inverter, sim
     from bayes_drt_tpu_torch.parallel import drift_fit_spectra_batch
     freq, times, zb = sim.make_drift_fleet(DRIFT_B, seed=0)
     out, walls = {}, []
-    for seed in (0, 1):
+    for seed in (1,):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = drift_fit_spectra_batch(freq, times, zb, random_seed=seed,
@@ -2925,6 +3011,369 @@ def phase_drift(card):
     return launches
 
 
+def sbc_setup(dtype, device):
+    """The SBC model (the Series model on logspace(6, -2, 81), K=101) on
+    ``device``: (frequencies, tau, epsilon, cfg, data)."""
+    from bayes_drt_tpu_torch.parallel.batch import _build_shared
+    frequencies, tau, eps, cfg, data, _ = _build_shared(
+        np.logspace(6, -2, 81), mode="sample", dtype=dtype, device=device)
+    return frequencies, tau, eps, cfg, data
+
+
+def sbc_calibration(card, failed):
+    """(a) SBC of the production sampler: the prior marginal by NUTS on the
+    card, the exact datasets, the production fit with unthinned monitors,
+    the auto-thinning stride, then each monitor's ranks, chi-square and
+    ECDF band. Returns its seconds."""
+    import torch
+    from bayes_drt_tpu_torch import sbc
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.parallel import fit_spectra_batch
+    n_sets = SBC_SETS
+    frequencies, tau, eps, cfg, data = sbc_setup(torch.float32, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ups_raw, ds, pdiag = sbc.sample_prior_marginal(
+        cfg, data, n_sets, seed=0, warmup=SBC_PRIOR_WARMUP,
+        max_tree_depth=SBC_PRIOR_DEPTH)
+    prior_s = time.perf_counter() - t0
+    print(f"sbc prior marginal: {n_sets} draws (NUTS md{SBC_PRIOR_DEPTH}, "
+          f"warmup {SBC_PRIOR_WARMUP}) in {prior_s:.1f} s "
+          f"{json.dumps(pdiag)} [{card}]")
+    if not (pdiag.get("rank_rhat_max", np.inf) < 1.1
+            and np.isfinite(ups_raw).all() and np.isfinite(ds).all()):
+        failed.append("sbc prior marginal")
+    phi = np.exp(-(eps * np.log(SBC_GE_TAU[:, None] / tau[None, :])) ** 2)
+    z, truths = sbc.generate_datasets(cfg, data, ups_raw, ds, phi, seed=1)
+    shmc = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS, leaf_unroll=2,
+                      draw_unroll=2, recompute_grad=True,
+                      eps_quantile=EPS_QUANTILE)
+    k1 = traj_fused.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_spectra_batch(frequencies, z, mode="sample", chains=CHAINS,
+                            warmup=WARMUP, samples=SAMPLES, random_seed=2,
+                            ncp=True, gamma_eval_tau=SBC_GE_TAU, z_scale=1.0,
+                            monitor_thin=1, escalate=False, sampler="shmc",
+                            shmc_cfg=shmc, dtype=np.float32)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k1 = traj_fused.launches - k1
+    d = res.diagnostics
+    md = d["monitor_draws"]
+    ess_med = np.median(sbc.monitor_ess(md, CHAINS), axis=0)
+    total = md.shape[1]
+    s_per = total // CHAINS
+    stride = min(int(np.ceil(total / max(float(ess_med.min()), 4.0))), s_per)
+    md = md.reshape(n_sets, CHAINS, s_per, -1)[:, :, stride - 1::stride]
+    md = md.reshape(n_sets, -1, md.shape[-1])
+    ranks = sbc.sbc_ranks(truths, md)
+    pvals, chi2 = sbc.rank_uniformity(ranks, md.shape[1], n_bins=SBC_BINS)
+    viol = sbc.ecdf_envelope_violations(ranks, md.shape[1])
+    ok = (pvals > SBC_P_MIN) & ~viol
+    print(f"sbc fit: {n_sets} x {CHAINS}x({WARMUP}+{SAMPLES}) in "
+          f"{fit_s:.2f} s, K1 launches {k1}, divergence "
+          f"{float(np.mean(d['divergence_rate'])):.4f}, logp-Rhat(med) "
+          f"{float(np.median(d['logp_rhat'])):.3f}; monitor ESS(med) "
+          f"{np.array2string(ess_med, precision=1)} -> stride {stride}, "
+          f"L={md.shape[1]} [{card}]")
+    for j, name in enumerate(SBC_MONITORS):
+        print(f"  sbc {'OK  ' if ok[j] else 'FAIL'} {name:<12} "
+              f"chi2={chi2[j]:7.2f} p={pvals[j]:.4f} "
+              f"ecdf_viol={bool(viol[j])}")
+    print(f"sbc: {int(ok.sum())}/{len(SBC_MONITORS)} monitors calibrated "
+          f"({SBC_BINS}-bin chi2 p > {SBC_P_MIN} and inside the DKW band)")
+    if md.shape[-1] != len(SBC_MONITORS) or not ok.all():
+        failed.append("sbc calibration")
+    if k1 != WARMUP + SAMPLES:
+        failed.append("sbc K1 launches")
+    return {"prior_s": prior_s, "fit_s": fit_s, "stride": stride,
+            "n_sets": n_sets}
+
+
+def sbc_parity(card, failed):
+    """(a) float64, card against CPU: the prior marginal's value and
+    gradient on SBC_PARITY_ROWS rows (within 1e-9 of each row's largest
+    gradient entry), and one NUTS transition of the first
+    SBC_PARITY_NUTS_ROWS of them (md7), on the card as CUDA graphs, under
+    phase 9's criterion."""
+    import torch
+    from bayes_drt_tpu_torch import sbc
+    rng = np.random.default_rng(3)
+    k = 101
+    u = np.concatenate([np.log(0.2) + rng.normal(0, 0.3, (SBC_PARITY_ROWS,
+                                                         1))
+                        + rng.normal(0, 0.05, (SBC_PARITY_ROWS, k)),
+                        rng.normal(0, 0.3, (SBC_PARITY_ROWS, 3))], axis=1)
+    vgs = {}
+    for dev in ("cuda", "cpu"):
+        _, _, _, cfg, data = sbc_setup(torch.float64, dev)
+        logp, _ = sbc._marginal_logdensity(cfg, data)
+        vgs[dev] = sbc.marginal_value_and_grad(logp)
+    out = {dev: [t.cpu() for t in vgs[dev](torch.as_tensor(u, device=dev))]
+           for dev in vgs}
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    rel_v = float(((lc - lh).abs() / lh.abs()).max())
+    rel_g = float(((gc - gh).abs().max(1).values
+                   / gh.abs().max(1).values).max())
+    print(f"sbc parity: marginal value and gradient on {SBC_PARITY_ROWS} "
+          f"rows, float64, largest relative difference {rel_v:.2e} / "
+          f"{rel_g:.2e}")
+    if not (rel_v <= 1e-9 and rel_g <= 1e-9):
+        failed.append("sbc marginal parity")
+
+    def rows(dev):
+        q = torch.as_tensor(u[:SBC_PARITY_NUTS_ROWS], device=dev)
+        lp, g = vgs[dev](q)
+        return (vgs[dev], q, lp, g,
+                torch.full((SBC_PARITY_NUTS_ROWS,), 0.05,
+                           dtype=torch.float64, device=dev),
+                torch.ones_like(q))
+
+    bad = nuts_transition_parity(card, "sbc parity nuts",
+                                 SBC_PARITY_NUTS_ROWS, SBC_PRIOR_DEPTH, 8,
+                                 rows)
+    if bad:
+        failed.append("sbc nuts parity")
+
+
+def write_cli_inputs(root):
+    """The CLI's input directory: the CSVs of CLI_GRIDS (noisy ZARC
+    spectra from sim, a seed a grid), CLI_DTA Gamry .DTA files on the
+    first grid and one corrupt file. Returns {grid index: (freq, stems)}."""
+    import csv
+    from bayes_drt_tpu_torch import sim
+    grids = {}
+    for g, (n, (hi, lo, pts)) in enumerate(CLI_GRIDS):
+        freq, zb = sim.make_benchmark_batch(n, freq=np.logspace(hi, lo, pts),
+                                            noise_level=0.0025, seed=20 + g)
+        stems = []
+        for i, z in enumerate(zb):
+            stem = f"zarc_g{g}_{i:04d}"
+            with open(os.path.join(root, stem + ".csv"), "w",
+                      newline="") as f:
+                w = csv.writer(f, lineterminator="\n")
+                w.writerow(["Freq", "Zreal", "Zimag"])
+                w.writerows([repr(float(a)), repr(float(b.real)),
+                             repr(float(b.imag))] for a, b in zip(freq, z))
+            stems.append(stem)
+        grids[g] = (freq, stems)
+    freq, zb = sim.make_benchmark_batch(CLI_DTA, freq=grids[0][0],
+                                        noise_level=0.0025, seed=30)
+    for i, z in enumerate(zb):
+        sim.write_gamry_dta(os.path.join(root, f"gamry_{i}.DTA"), freq, z)
+        grids[0][1].append(f"gamry_{i}")
+    with open(os.path.join(root, "corrupt.csv"), "w") as f:
+        f.write("this is not a spectrum\x00\x01")
+    return grids
+
+
+def read_csv_rows(path):
+    import csv
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def run_cli(label, argv, out):
+    """``python -m bayes_drt_tpu_torch fit ...`` in a subprocess from the
+    repo root; returns (seconds, {bucket: (spectra, seconds)})."""
+    cmd = [sys.executable, "-m", "bayes_drt_tpu_torch", "fit", *argv,
+           "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+        raise AssertionError(f"cli {label}: exit code {proc.returncode}")
+    buckets = {}
+    for line in proc.stderr.splitlines():
+        if line.startswith("bucket "):
+            head, rest = line.split(":", 1)
+            n = int(rest.split("spectra")[0])
+            secs = float(rest.split(" fit in ")[1].split("s")[0])
+            buckets[int(head.split()[1])] = (n, secs)
+    print(f"cli {label}: {wall:.1f} s for the command; " + "; ".join(
+        f"bucket {b}: {n} spectra in {s:.2f} s, "
+        f"{n / (s / 60.0):.0f} spectra/min" for b, (n, s) in
+        sorted(buckets.items())))
+    return wall, buckets
+
+
+def cli_gamma_figures(out, stems):
+    """Batch-mean gamma RMSE and per-spectrum RMSE p90 over Rp of the
+    Gout files of ``stems`` against the ZARC truth, and the Rps."""
+    from bayes_drt_tpu_torch import sim
+    gs, rps = [], []
+    for stem in stems:
+        rows = read_csv_rows(os.path.join(out, f"Gout_{stem}.csv"))
+        tau = np.array([float(r["tau"]) for r in rows])
+        gs.append([float(r["gamma"]) for r in rows])
+    g = np.array(gs)
+    gt = sim.reference_gamma("ZARC", tau)
+    rp = np.trapezoid(gt, np.log(tau))
+    per = np.sqrt(np.mean((g - gt) ** 2, axis=1)) / rp
+    rmse = float(np.sqrt(np.mean((g.mean(axis=0) - gt) ** 2)) / rp)
+    return rmse, float(np.percentile(per, 90)), np.trapezoid(g, np.log(tau),
+                                                              axis=1) / rp
+
+
+def cli_check_outputs(label, out, failed, n_files):
+    """One Gout file a spectrum, the summary's rows, the corrupt file's
+    load_error row."""
+    summary = read_csv_rows(os.path.join(out, "summary.csv"))
+    n_gout = sum(name.startswith("Gout_") for name in os.listdir(out))
+    bad = [r for r in summary if r["file"] == "corrupt.csv"]
+    ok = (n_gout == n_files and len(summary) == n_files + 1 and len(bad) == 1
+          and bad[0]["status"].startswith("load_error")
+          and all(r["status"] == "ok" for r in summary
+                  if r["file"] != "corrupt.csv"))
+    if not ok:
+        failed.append(f"cli {label} outputs")
+    return summary
+
+
+def cli_trace(card, root, failed):
+    """One sample-mode bucket (the second grid's) fit in this process as
+    the CLI fits it, wrapped in profiling.trace: the Chrome trace must
+    name K1's kernel once a draw; prints K1's share of the traced device
+    kernel time. Returns the fit's launches."""
+    import glob
+    import tempfile
+    import torch
+    from bayes_drt_tpu_torch import cli, profiling
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.native import load_spectra
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    args = cli.build_parser().parse_args(["fit", "x", "--mode", "sample"])
+    (bucket,) = load_spectra(sorted(glob.glob(os.path.join(root,
+                                                           "zarc_g1_*"))))
+    freq, zb = bucket["freq"], bucket["Z"]
+    tau_eval = cli._eval_tau(cli._basis_tau(freq), args.eval_points)
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    with tempfile.TemporaryDirectory() as tdir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.trace(tdir):
+            cli.fit_bucket(args, freq, zb, tau_eval)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+        (name,) = os.listdir(tdir)
+        with open(os.path.join(tdir, name)) as f:
+            events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if "traj_kernel" in e.get("name", "")]
+    k1_us = sum(e.get("dur", 0) for e in k1)
+    all_us = sum(e.get("dur", 0) for e in kern)
+    draws = args.warmup + args.samples
+    print(f"cli trace: one sample-mode bucket ({zb.shape[0]} spectra) "
+          f"under profiling.trace in {wall:.1f} s; {len(kern)} kernel "
+          f"events, K1 ({k1[0]['name'][:60] if k1 else 'absent'}) "
+          f"{len(k1)} launches, {k1_us / 1e3:.1f} ms of {all_us / 1e3:.1f} "
+          f"ms device kernel time ({100.0 * k1_us / max(all_us, 1):.1f}%) "
+          f"[{card}]")
+    if len(k1) != draws or launches["traj"] != draws:
+        failed.append("cli trace")
+    return launches
+
+
+def cli_runs(card, failed):
+    """(b) the CLI as a user runs it, on the inputs of write_cli_inputs:
+    sample mode (the defaults, 4 x (250+250), SHMC), optimize, ridge with
+    and without --ridge-cv, --peaks on CLI_PEAK_FILES files, each a
+    subprocess; then the traced bucket. Returns the commands' seconds and
+    the traced fit's launches."""
+    import tempfile
+    secs = {}
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        grids = write_cli_inputs(data)
+        n_files = sum(len(stems) for _, stems in grids.values())
+        paths = [os.path.join(data, "*.csv"), os.path.join(data, "*.DTA")]
+        for label, extra in (("sample", []), ("optimize", ["--mode",
+                                                           "optimize"]),
+                             ("ridge", ["--mode", "ridge"]),
+                             ("ridge-cv", ["--mode", "ridge", "--ridge-cv"])):
+            out = os.path.join(root, label)
+            secs[label], _ = run_cli(label, paths + extra, out)
+            summary = cli_check_outputs(label, out, failed, n_files)
+            figs = {}
+            for g, (freq, stems) in grids.items():
+                rmse, p90, rps = cli_gamma_figures(out, stems)
+                figs[g] = {"rmse": rmse, "p90": p90,
+                           "rp_err_max": float(np.abs(rps - 1.0).max())}
+            if label == "sample":
+                ok = all(f["rmse"] < GATE_RMSE and f["p90"] < GATE_P90
+                         for f in figs.values())
+                div = [float(r["divergence_rate"]) for r in summary
+                       if r["status"] == "ok"]
+                figs["divergence_mean"] = float(np.mean(div))
+            elif label == "optimize":
+                ok = all(f["rmse"] < MAP_GATE_RMSE
+                         and f["p90"] < CLI_GATE_MAP_P90
+                         for f in figs.values())
+            elif label == "ridge":
+                ok = all(f["rp_err_max"] < CLI_GATE_RIDGE_RP
+                         for f in figs.values())
+            else:
+                ok = all(f["rmse"] < CLI_GATE_CV_RMSE for f in figs.values())
+            print(f"cli {label} figures (of Rp, per grid): "
+                  f"{json.dumps(figs)} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"cli {label} gates")
+        out = os.path.join(root, "peaks")
+        peak_files = [os.path.join(data, s + ".csv")
+                      for s in grids[0][1][:CLI_PEAK_FILES]]
+        secs["peaks"], _ = run_cli("ridge --peaks", peak_files + [
+            "--mode", "ridge", "--peaks"], out)
+        summary = read_csv_rows(os.path.join(out, "summary.csv"))
+        n_peaks = [int(r["n_peaks"]) for r in summary]
+        rel = [float(r["peak_fit_rmse_rel"]) for r in summary]
+        print(f"cli peaks: n_peaks {n_peaks}, peak_fit_rmse_rel max "
+              f"{max(rel):.4f}")
+        if not (len(summary) == CLI_PEAK_FILES and min(n_peaks) >= 1
+                and max(rel) < CLI_PEAK_RMSE_REL):
+            failed.append("cli peaks")
+        t0 = time.perf_counter()
+        traced = cli_trace(card, data, failed)
+        secs["trace"] = time.perf_counter() - t0
+    return secs, traced
+
+
+def phase_sbc_cli(card):
+    """Simulation-based calibration and the command line (phase 15): (a)
+    SBC at the JAX package's production configuration and its float64
+    card-vs-CPU parity, (b) the CLI's runs, gates and trace. Returns the
+    launches of (a)'s setup and fit and of the traced CLI bucket (the
+    CLI's subprocesses launch the kernels in their own processes)."""
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    failed = []
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    t0 = time.perf_counter()
+    sbc_out = sbc_calibration(card, failed)
+    t_a = time.perf_counter()
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    sbc_parity(card, failed)
+    t_p = time.perf_counter()
+    cli_s, traced = cli_runs(card, failed)
+    t_b = time.perf_counter()
+    launches = {k: launches[k] + traced[k] for k in launches}
+    print("sbc/cli phase: " + json.dumps({
+        "seconds": {"sbc": t_a - t0, "sbc_parity": t_p - t_a,
+                    "cli": t_b - t_p, "total": t_b - t0,
+                    "sbc_parts": sbc_out, "cli_parts": cli_s},
+        "launches": launches}) + f" [{card}]")
+    if failed:
+        raise AssertionError(f"sbc/cli phase failed: {failed}")
+    return launches
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -2933,32 +3382,43 @@ def main(argv):
     from bayes_drt_tpu_torch import _build
     card = card_line()
     print(card)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(card, *args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     t0 = time.perf_counter()
     logs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)} "
+    seconds["1 build"] = round(time.perf_counter() - t0, 1)
+    print(f"build: {seconds['1 build']:.1f} s for {sorted(logs)} "
           "(nvcc, sm_90a, in parallel)")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    quad = phase_quad(card)
-    phase_traj_f64(card)
+    quad = timed("2 quad", phase_quad)
+    timed("3 traj f64", phase_traj_f64)
     if "--check-only" in argv:
         return 0
-    launches, state = phase_main(card)
-    traj = phase_traj_f32(card, state)
-    esc = phase_escalation(card)
-    dflt = phase_default(card)
-    phase_nuts_timing(card, state)
-    phase_parity(card, state)
-    mp = phase_map(card)
-    phase_map_parity(card)
-    sp = phase_multidist(card)
-    gr = phase_generic(card, state)
-    inv = phase_inverter(card)
-    dr = phase_drift(card)
+    launches, state = timed("4 main", phase_main)
+    traj = timed("5 traj f32", phase_traj_f32, state)
+    esc = timed("6 escalation", phase_escalation)
+    dflt = timed("7 default", phase_default)
+    timed("8 nuts timing", phase_nuts_timing, state)
+    timed("9 parity", phase_parity, state)
+    mp = timed("10 map", phase_map)
+    timed("10 map parity", phase_map_parity)
+    sp = timed("11 multidist", phase_multidist)
+    gr = timed("12 generic", phase_generic, state)
+    inv = timed("13 inverter", phase_inverter)
+    dr = timed("14 drift", phase_drift)
+    sc = timed("15 sbc cli", phase_sbc_cli)
     launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] + sp[k] + gr[k]
-                + inv[k] + dr[k] for k in launches}
+                + inv[k] + dr[k] + sc[k] for k in launches}
+    print(f"phase seconds: {json.dumps(seconds)} [{card}]")
     kernels = [
         dict(name="drt_quad", route="cuda",
              source="bayes_drt_tpu_torch/csrc/quad.cu",

@@ -133,9 +133,27 @@ def test_entry_points_refuse_without_cuda():
 
 def test_unported_options_raise():
     freq, Zb = _batch()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fit_spectra_batch(freq, Zb, device="cpu",
-                          **{**KW, "monitor_thin": 2})
+    # monitor_thin (item 10d, ported): the JAX package's layout, and in
+    # both packages the unthinned monitor columns average to the fit's own
+    # R_inf, inductance and gamma means (physical units)
+    ge_tau = np.array([1e-4, 1e-2])
+    kw = {**KW, "warmup": 20, "samples": 10, "monitor_thin": 1,
+          "gamma_eval_tau": ge_tau, "dtype": np.float32}
+    got = fit_spectra_batch(freq, Zb, device="cpu", shmc_cfg=SHMCConfig(
+        n_steps=8, warm_steps=8, eps_quantile=0.5), **kw)
+    want = jax_fit(freq, Zb, shmc_cfg=JaxSHMCConfig(
+        n_steps=8, warm_steps=8, eps_quantile=0.5, flat_chain=True), **kw)
+    for res in (got, want):
+        md = np.asarray(res.diagnostics["monitor_draws"], float)
+        assert md.shape == (4, 2 * 10, 6 + 2)
+        assert (md[:, :, :6] > 0).all()
+        np.testing.assert_allclose(md[:, :, 0].mean(1), res.r_inf,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(md[:, :, 1].mean(1), res.inductance,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(
+            md[:, :, 6:].mean(1), res.diagnostics["gamma_eval_mean"],
+            rtol=1e-5, atol=1e-6 * np.abs(md[:, :, 6:]).max())
     for kw in (dict(sampler="chees"), dict(warm_start=object()),
                dict(precondition="pooled")):
         with pytest.raises(NotImplementedError, match="item 12"):

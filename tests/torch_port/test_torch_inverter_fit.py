@@ -17,6 +17,7 @@ from bayes_drt_tpu_torch import Inverter, sim
 from bayes_drt_tpu_torch import inverter as inverter_module
 from bayes_drt_tpu_torch.models.posterior import log_density
 from jax_noise_reference import jax_nuts_stream, jax_shmc_stream
+from test_torch_viz import plotted_data, plt
 
 torch.set_num_threads(1)
 
@@ -271,7 +272,7 @@ def test_fit_validation_and_unported_methods():
     """fit's validation errors; the drift and peak methods, which now run
     (held to the JAX package: its errors before a drift fit, and the
     peak methods on the same ridge fit at 1e-6); the plotting wrappers,
-    which raise naming item 11f."""
+    held to the JAX package's plots of that fit."""
     b = _port()
     with pytest.raises(ValueError, match="Invalid mode"):
         b.fit(FREQ, Z, mode="map")
@@ -319,10 +320,20 @@ def test_fit_validation_and_unported_methods():
     np.testing.assert_allclose(b.distribution_fits["DRT"]["peak_params"],
                                a.distribution_fits["DRT"]["peak_params"],
                                rtol=1e-6, atol=1e-6)
+    # the plotting wrappers (item 11f, ported) draw the JAX package's
+    # plots of the same ridge fit, their data within 1e-6
     for name in ("plot_distribution", "plot_fit", "plot_residuals",
                  "plot_full_results", "plot_peak_fit"):
-        with pytest.raises(NotImplementedError, match="item 11f"):
-            getattr(b, name)()
+        fig_a = np.ravel(getattr(a, name)())[0].get_figure()
+        fig_b = np.ravel(getattr(b, name)())[0].get_figure()
+        got, want = plotted_data(fig_b), plotted_data(fig_a)
+        assert len(got) == len(want) > 0, name
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-6,
+                                       atol=1e-6 * np.abs(w).max(),
+                                       err_msg=name)
+        plt.close(fig_a)
+        plt.close(fig_b)
 
 
 def test_jax_saved_fit_predicts_in_the_port(jax_map):

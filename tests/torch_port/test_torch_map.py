@@ -516,9 +516,19 @@ def test_optimize_errors_and_options(monkeypatch):
     for k, v in jax_parallel_ridge_seed(freq, Zb, ddt).items():
         np.testing.assert_allclose(seeds[0][k][:1], v, rtol=1e-8,
                                    atol=1e-8 * np.abs(v).max(), err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        batch.fit_spectra_batch(freq, Zb, outliers=True, monitor_thin=2,
-                                device="cpu")
+    # monitor_thin with outliers (item 10d, ported): the JAX package's
+    # columns, sigma_out at its three monitor frequencies last
+    mkw = dict(outliers=True, monitor_thin=2, chains=2, warmup=10,
+               samples=8, max_tree_depth=3, escalate=False,
+               gamma_eval_tau=np.array([1e-2]))
+    got = batch.fit_spectra_batch(freq, Zb, dtype=torch.float64,
+                                  device="cpu", **mkw)
+    want = jax_batch.fit_spectra_batch(freq, Zb, dtype=jnp.float64, **mkw)
+    for res in (got, want):
+        md = np.asarray(res.diagnostics["monitor_draws"])
+        assert md.shape == (1, 2 * 4, 6 + 1 + 3)
+        assert np.isfinite(md).all() and (md[:, :, :6] > 0).all()
+        assert (md[:, :, 7:] > 0).all()
     with pytest.raises(ValueError, match="mode='sample'"):
         batch.fit_spectra_batch(freq, Zb, mode="optimize", quality="strict",
                                 device="cpu")

@@ -553,9 +553,19 @@ def test_unported_options_raise_multidist(monkeypatch):
     freq, Zb = _sp_batch(2)
     ddt = {"DDT": dict(TP, basis_freq=BASIS)}
     kw = dict(device="cpu", chains=2, warmup=4, samples=4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        batch.fit_spectra_batch(freq, Zb, distributions=SP_B,
-                                monitor_thin=2, **kw)
+    # monitor_thin on a series-parallel posterior (item 10d, ported):
+    # the JAX package's columns, gamma of the first (series DRT)
+    # distribution in impedance units
+    mkw = dict(distributions=SP_B, monitor_thin=2, chains=2, warmup=4,
+               samples=4, max_tree_depth=3, escalate=False,
+               gamma_eval_tau=np.array([1e-3, 1e-1]))
+    got = batch.fit_spectra_batch(freq, Zb, dtype=torch.float64,
+                                  device="cpu", **mkw)
+    want = jax_batch.fit_spectra_batch(freq, Zb, **mkw)
+    for res in (got, want):
+        md = np.asarray(res.diagnostics["monitor_draws"])
+        assert md.shape == (2, 2 * 2, 6 + 2)
+        assert np.isfinite(md).all() and (md[:, :, :6] > 0).all()
     # the Zic basis has no L of order 1 or 2 (construct_L's ValueError,
     # as in the JAX package)
     with pytest.raises(ValueError, match="Unsupported"):
