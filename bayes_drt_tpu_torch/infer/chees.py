@@ -193,9 +193,7 @@ class GraphedTrajectory:
         self._graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self._graph, pool=pool):
             self._out = run()
-
-    def pool(self):
-        return self._graph.pool()
+        self.pool_id = self._graph.pool()
 
     def __call__(self, q, p0, grad, logp, eps, m_inv, j, u_sel):
         for dst, src in zip(self._inp, (q, p0, grad, logp, eps, m_inv)):
@@ -389,7 +387,8 @@ def run_shmc(value_and_grad, traj, q0, warmup: int, samples: int, cfg,
 
 def sample_shmc(value_and_grad, q0, warmup: int, samples: int,
                 cfg: SHMCConfig, chains: int, generator=None, noise=None,
-                init_step_size=1.0, metric=None, time_draws: bool = False):
+                init_step_size=1.0, metric=None, time_draws: bool = False,
+                graphs=None):
     """Static multinomial HMC on any batched posterior: rows q0 (B*chains,
     D), spectrum-major, and ``value_and_grad(q)`` returning (logp (R,),
     grad (R, D)). Each draw samples momentum, splits the static n-step
@@ -398,27 +397,35 @@ def sample_shmc(value_and_grad, q0, warmup: int, samples: int,
     the adaptation is ``run_shmc``'s. On a CUDA device each draw's
     trajectory replays as a CUDA graph (``GraphedTrajectory``), one for the
     warmup length and one for the sampling length, captured at their first
-    draw into one memory pool; on the CPU it runs eagerly. With
-    ``time_draws``, ``info['capture_s']`` holds the captures' seconds.
+    draw into one memory pool; on the CPU it runs eagerly. ``graphs`` (a
+    progcache runner's dict) keeps the trajectories across calls, keyed
+    on their shapes, leapfrog count, ``recompute_grad`` and
+    ``max_energy_error``; ``value_and_grad`` must then be the runner's
+    function. With ``time_draws``, ``info['capture_s']`` holds the
+    captures' seconds (none on a hit).
     Returns (draws (B, C, S, D), info with a leading B axis); ``inv_mass``
     is per spectrum (B, D), ``step_size`` per chain (B, C)."""
     max_e = cfg.max_energy_error
     rc = cfg.recompute_grad
-    graphs, capture_s = {}, []
-    pool = [None]
+    graphs = {} if graphs is None else graphs
+    capture_s = []
+    base = ("traj",) + tuple(q0.shape) + (str(q0.dtype), str(q0.device),
+                                          float(max_e), bool(rc))
 
     def traj(n_leap, *args):
         if q0.device.type != "cuda":
             return shmc_trajectory(value_and_grad, n_leap, max_e, *args,
                                    recompute_grad=rc)
-        if n_leap not in graphs:
+        key = base + (n_leap,)
+        if key not in graphs:
             t0 = time.perf_counter()
-            graphs[n_leap] = GraphedTrajectory(value_and_grad, n_leap, max_e,
-                                               rc, *args, pool=pool[0])
-            pool[0] = graphs[n_leap].pool()
+            pool = next((g.pool_id for k, g in graphs.items()
+                         if k[:len(base)] == base), None)
+            graphs[key] = GraphedTrajectory(value_and_grad, n_leap, max_e,
+                                            rc, *args, pool=pool)
             torch.cuda.synchronize(q0.device)
             capture_s.append(time.perf_counter() - t0)
-        return graphs[n_leap](*args)
+        return graphs[key](*args)
 
     draws, info = run_shmc(value_and_grad, traj, q0, warmup, samples, cfg,
                            chains, generator=generator, noise=noise,

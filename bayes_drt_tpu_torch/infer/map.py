@@ -220,7 +220,9 @@ class _LBFGS:
     and ``post`` (the update, the stop rule, the host's flags). The same
     pieces run eagerly, or on a CUDA device captured once as CUDA graphs
     and replayed: the loss must then be capturable (no host
-    synchronization). The tolerances are floored as run_lbfgs says."""
+    synchronization). The tolerances are floored as run_lbfgs says.
+    ``reset(x0)`` starts another run from ``x0`` by copying a fresh state
+    into the persistent one, so the graphs serve every run of a shape."""
 
     def __init__(self, value_and_grad, x0, max_iter, tol, ftol_rel, m,
                  max_ls, graphs):
@@ -229,12 +231,29 @@ class _LBFGS:
         self.max_iter = max_iter
         self.tol, self.ftol_rel = max(tol, 50.0 * eps), max(ftol_rel,
                                                              10.0 * eps)
+        self.s = self._fresh(x0)
         m = self.m
+        # the two-loop's slot order at each k % m, newest pair last
+        self.orders = (torch.arange(m)[None, :] + torch.arange(m)[:, None]
+                       ) % m
+        self.orders = self.orders.to(x0.device)
+        self.graphs = None
+        self.pool_id = None
+        if graphs:
+            self._capture()
+
+    def reset(self, x0):
+        for k, v in self._fresh(x0).items():
+            self.s[k].copy_(v)
+        return self
+
+    def _fresh(self, x0):
+        m, max_iter = self.m, self.max_iter
         R, D = x0.shape
         z = x0.new_zeros(R)
         act = torch.full((R,), max_iter > 0, dtype=torch.bool,
                          device=x0.device)
-        self.s = s = dict(
+        s = dict(
             x=x0.clone(), value=torch.full_like(z, math.inf),
             grad=torch.zeros_like(x0), prev_params=torch.zeros_like(x0),
             prev_grad=torch.zeros_like(x0), d_params=x0.new_zeros((m, R, D)),
@@ -249,13 +268,7 @@ class _LBFGS:
             order=torch.zeros(m, dtype=torch.long, device=x0.device))
         for k, v in _ls_start(z, torch.zeros_like(x0), z, act).items():
             s["ls_" + k] = v.clone()
-        # the two-loop's slot order at each k % m, newest pair last
-        self.orders = (torch.arange(m)[None, :] + torch.arange(m)[:, None]
-                       ) % m
-        self.orders = self.orders.to(x0.device)
-        self.graphs = None
-        if graphs:
-            self._capture()
+        return s
 
     def _assign(self, s, new):
         for k, v in new.items():
@@ -351,7 +364,7 @@ class _LBFGS:
             self.post(scratch)
         torch.cuda.current_stream(dev).wait_stream(side)
         del scratch
-        pool = torch.cuda.graph_pool_handle()
+        pool = self.pool_id = torch.cuda.graph_pool_handle()
         self.graphs = {}
         for name, fn in (("pre", lambda: self.pre(self.s, first=False)),
                          ("step", lambda: self.step(self.s, last=False)),
@@ -401,8 +414,8 @@ class _LBFGS:
 
 def run_lbfgs(value_and_grad: Callable, x0, max_iter: int = 4000,
               tol: float = 1e-8, ftol_rel: float = 1e-13,
-              memory_size: int = 10,
-              max_linesearch_steps: int = 40) -> MapResult:
+              memory_size: int = 10, max_linesearch_steps: int = 40,
+              graphs=None) -> MapResult:
     """Minimize a batched loss from each row of ``x0`` (R, D).
 
     A row stops on gradient infinity norm <= tol (Stan's tol_grad
@@ -415,9 +428,25 @@ def run_lbfgs(value_and_grad: Callable, x0, max_iter: int = 4000,
     from; ``value`` is the objective after it. ``converged`` means the row
     stopped on a tolerance, not on the cap. On a CUDA device the
     iterations replay as CUDA graphs (the loss must be capturable), equal
-    to the eager form; on the CPU they run eagerly."""
-    return _LBFGS(value_and_grad, x0, max_iter, tol, ftol_rel, memory_size,
-                  max_linesearch_steps, graphs=x0.device.type == "cuda").run()
+    to the eager form; on the CPU they run eagerly. ``graphs`` (a progcache
+    runner's dict) keeps the run's state and graphs across calls, keyed on
+    the rows' shape, dtype and device, the cap, tolerances, history size
+    and line-search steps; a later run of that key resets the state by
+    copy and replays. ``value_and_grad`` must then be the runner's
+    function."""
+    key = ("lbfgs", tuple(x0.shape), str(x0.dtype), str(x0.device),
+           int(max_iter), float(tol), float(ftol_rel), int(memory_size),
+           int(max_linesearch_steps))
+    lb = None if graphs is None else graphs.get(key)
+    if lb is None:
+        lb = _LBFGS(value_and_grad, x0, max_iter, tol, ftol_rel,
+                    memory_size, max_linesearch_steps,
+                    graphs=x0.device.type == "cuda")
+        if graphs is not None:
+            graphs[key] = lb
+    else:
+        lb.reset(x0)
+    return lb.run()
 
 
 def newton_polish(value_and_grad: Callable, hessian: Callable, x0,

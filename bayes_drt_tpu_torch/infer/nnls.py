@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..progcache import cached_program
+
 
 class QPResult(NamedTuple):
     x: torch.Tensor              # (B, K)
@@ -152,21 +154,24 @@ def _pivot_step(P, q, lb, ub, tol_p, tol_d, max_iter, s: _PivotState):
         done=torch.where(act, nviol == 0, s.done))
 
 
-def _padded_tail(P, q, lb, ub, tol_p, tol_d, max_iter, sub: _PivotState):
-    """The rows of ``sub`` padded to a power of two with copies of the first
-    row (n, the padded state, and ``run``, which advances that state in
-    place by _QP_GRAPH_STEPS iterations)."""
+def _tail_buffers(P, q, lb, ub, tol_d, sub: _PivotState, rows: int):
+    """The tail's inputs and state padded to ``rows`` rows with copies of
+    the first row: ((P, q, lb, ub, tol_d), state), fresh tensors."""
     n = sub.x.shape[0]
-    rows = max(8, 1 << (n - 1).bit_length())
 
     def padded(t):
         if rows == n:
             return t.clone()
         return torch.cat([t, t[:1].expand((rows - n,) + t.shape[1:])])
 
-    P_, q_, lb_, ub_, td_ = (padded(t).contiguous()
-                             for t in (P, q, lb, ub, tol_d))
-    st = _PivotState(*(padded(t) for t in sub))
+    return (tuple(padded(t).contiguous() for t in (P, q, lb, ub, tol_d)),
+            _PivotState(*(padded(t) for t in sub)))
+
+
+def _tail_run(bufs, st, tol_p, max_iter):
+    """``run()`` advances the padded state ``st`` in place by
+    _QP_GRAPH_STEPS iterations over the padded inputs ``bufs``."""
+    P_, q_, lb_, ub_, td_ = bufs
 
     def run():
         s = st
@@ -175,29 +180,75 @@ def _padded_tail(P, q, lb, ub, tol_p, tol_d, max_iter, sub: _PivotState):
         for dst, src in zip(st, s):
             dst.copy_(src)
 
-    return n, st, run
+    return run
+
+
+def _tail_rows(n: int) -> int:
+    return max(8, 1 << (n - 1).bit_length())
+
+
+def _padded_tail(P, q, lb, ub, tol_p, tol_d, max_iter, sub: _PivotState):
+    """The rows of ``sub`` padded to a power of two with copies of the first
+    row (n, the padded state, and ``run``, which advances that state in
+    place by _QP_GRAPH_STEPS iterations)."""
+    n = sub.x.shape[0]
+    bufs, st = _tail_buffers(P, q, lb, ub, tol_d, sub, _tail_rows(n))
+    return n, st, _tail_run(bufs, st, tol_p, max_iter)
+
+
+class _TailGraph:
+    """The tail's cache entry: padded buffers, their state and one CUDA
+    graph of ``_tail_run``, captured once; a call copies its rows in,
+    replays until they end and returns their state."""
+
+    def __init__(self, P, q, lb, ub, tol_p, tol_d, max_iter, sub, rows):
+        self.max_iter = max_iter
+        self.bufs, self.st = _tail_buffers(P, q, lb, ub, tol_d, sub, rows)
+        run = _tail_run(self.bufs, self.st, tol_p, max_iter)
+        start = _PivotState(*(t.clone() for t in self.st))
+        dev = P.device
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):      # first use of every op off-graph
+            run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for dst, src in zip(self.st, start):
+            dst.copy_(src)
+        self.pool_id = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=self.pool_id):
+            run()
+
+    def pools(self):
+        return [self.pool_id]
+
+    def release(self):
+        self.graph = None
+
+    def __call__(self, P, q, lb, ub, tol_d, sub):
+        n = sub.x.shape[0]
+        bufs, st = _tail_buffers(P, q, lb, ub, tol_d, sub,
+                                 self.st.x.shape[0])
+        for dst, src in zip(self.bufs + tuple(self.st), bufs + tuple(st)):
+            dst.copy_(src)
+        st = self.st
+        while bool(((st.it[:n] < self.max_iter) & ~st.done[:n]).any()):
+            self.graph.replay()
+        return _PivotState(*(t[:n].clone() for t in st))
 
 
 def _graphed_tail(P, q, lb, ub, tol_p, tol_d, max_iter, sub: _PivotState):
     """Pivot the rows of ``sub`` (on a CUDA device) to their end,
     _QP_GRAPH_STEPS iterations a replay of one captured CUDA graph of
-    ``_padded_tail``'s ``run``, whose padding rows are dropped."""
-    n, st, run = _padded_tail(P, q, lb, ub, tol_p, tol_d, max_iter, sub)
-    start = _PivotState(*(t.clone() for t in st))
-    dev = P.device
-    side = torch.cuda.Stream(device=dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):      # first use of every op off-graph
-        run()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    for dst, src in zip(st, start):
-        dst.copy_(src)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        run()
-    while bool(((st.it[:n] < max_iter) & ~st.done[:n]).any()):
-        graph.replay()
-    return _PivotState(*(t[:n].clone() for t in st))
+    ``_padded_tail``'s ``run``, whose padding rows are dropped. The graph
+    and its padded buffers are a cache entry (progcache) keyed on the
+    padded row count, K, dtype, device, the tolerance and the cap."""
+    rows = _tail_rows(sub.x.shape[0])
+    key = ("qp_tail", rows, tuple(P.shape[1:]), str(P.dtype), str(P.device),
+           tuple(lb.shape[1:]), float(tol_p), int(max_iter))
+    runner = cached_program(key, lambda: _TailGraph(
+        P, q, lb, ub, tol_p, tol_d, max_iter, sub, rows))
+    return runner(P, q, lb, ub, tol_d, sub)
 
 
 def solve_qp_box(P, q, lb, ub, max_iter: int = 100, tol: float = 1e-10,

@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..models.posterior import init_unconstrained, ravel
+from ..models.posterior import (init_unconstrained, posterior_value_and_grad,
+                                ravel)
+from ..progcache import bound, data_shapes
 from .chees import run_shmc, shmc_trajectory
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -309,6 +311,38 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target,
     return lp, grad
 
 
+def cached_value_and_grad(tag, cfg, data, targets, jacobian: bool = True,
+                          density=None, key=()):
+    """The posterior's batched value and gradient as a progcache runner
+    (``Bound``) over static copies of its inputs, this call's values
+    copied in: the hand-written form over (FlatShared, targets) for the
+    single series DRT with the default density, autograd of ``density``
+    (default models/posterior.log_density) over (data, targets)
+    otherwise. The entry's key is ``tag``, the model configuration, the
+    inputs' shapes and dtypes, the device, ``jacobian``, ``density`` and
+    ``key`` (the caller's solver settings); its ``fn`` is the value and
+    gradient and its ``graphs`` the samplers' and solvers' slot."""
+    flat = density is None and flat_eligible(cfg)
+    if flat:
+        spec = flat_spec_for(cfg, data)
+        inputs = (flat_shared_for(cfg, data, targets.dtype), targets)
+
+        def make(buf):
+            sh, tg = buf
+            return lambda q: flat_value_and_grad(
+                spec, sh.A, sh.L, sh.vecs, sh.scal, q, tg, jacobian=jacobian)
+    else:
+        inputs = (data, targets)
+
+        def make(buf):
+            return posterior_value_and_grad(cfg, buf[0], buf[1],
+                                            jacobian=jacobian,
+                                            density=density)
+    full = (tag, cfg, flat, data_shapes(inputs), str(targets.device),
+            bool(jacobian), density) + tuple(key)
+    return bound(full, inputs, make)
+
+
 # ===================== trajectory =====================
 
 def _traj_plain(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
@@ -406,7 +440,8 @@ traj_fused.launches = 0
 
 def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0,
                      warmup: int, samples: int, cfg, chains: int,
-                     generator=None, noise=None, time_traj: bool = False):
+                     generator=None, noise=None, time_traj: bool = False,
+                     metric=None, init_step_size=1.0):
     """Synchronous static multinomial HMC over ONE flat chain axis.
 
     The batch (B spectra x ``chains``) runs as (B*chains, D) rows through
@@ -416,7 +451,10 @@ def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0,
     the selected state's gradient.
 
     targets: (B*chains, 2n) per-row scaled impedance; q0: (B*chains, D).
-    ``noise`` and ``generator`` are run_shmc's. ``time_traj`` brackets
+    ``noise``, ``generator``, ``metric`` ((D,) or per spectrum (B, D))
+    and ``init_step_size`` (a float or per spectrum (B,)) are run_shmc's:
+    a resumed fit passes the metric and step size it carries, with
+    ``cfg.adapt_mass=False`` to hold the metric. ``time_traj`` brackets
     every trajectory launch with CUDA events and returns the per-draw
     device times (ms) under ``info['traj_ms']``. Returns (draws (B, C, S,
     D), info dict with a leading B axis).
@@ -432,4 +470,5 @@ def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0,
                           eps, m_inv_rows, targets, j, u_sel)
 
     return run_shmc(vg, traj, q0, warmup, samples, cfg, chains,
-                    generator=generator, noise=noise, time_traj=time_traj)
+                    generator=generator, noise=noise, time_traj=time_traj,
+                    metric=metric, init_step_size=init_step_size)

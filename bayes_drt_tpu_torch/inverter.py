@@ -35,21 +35,19 @@ from .infer.map import MapResult, newton_polish, run_lbfgs, run_lbfgs_restarts
 from .infer.nuts import NUTSConfig, sample_nuts
 from .infer.ridge import (HyperLambdaConfig, RidgeData, run_hyper_lambda,
                           run_hyper_weights, run_ordinary_ridge)
-from .infer.shmc_flat import (flat_eligible, flat_shared_for, flat_spec_for,
-                              flat_value_and_grad)
 from .models.build import build_posterior, sort_distributions, z_scale_for
 from .models.drift import (DRIFT_MODELS, DriftConfig, constrain_drift,
                            drift_log_density, drift_value_and_grad,
                            init_drift_params, predict_drift_target,
                            ravel_drift, unravel_drift)
 from .models.posterior import (PosteriorData, constrain, init_unconstrained,
-                               posterior_value_and_grad, predict_target,
-                               ravel, sigma_tot, unravel)
+                               predict_target, ravel, sigma_tot, unravel)
 from .ops.basis import get_basis_func
 from .ops.matrices import (construct_A, construct_L, construct_M,
                            default_epsilon, get_tau_basis)
-from .parallel.batch import (MapObjective, _format_weights_batch, drift_data,
-                             drift_pick)
+from .parallel.batch import (MapObjective, _drift_loss,
+                             _format_weights_batch, _sampler_entry,
+                             drift_data, drift_pick, map_objective)
 from .profiling import StageTimer
 from .utils import check_equality, get_outlier_thresh, r2_score, rel_round
 
@@ -913,37 +911,30 @@ class Inverter:
                     f"f={frequencies[outlier_idx.ravel()]} Hz. Check the "
                     "residuals and consider re-running with outliers=True")
 
-    def _density_vg(self, cfg, data, rows, density, jacobian):
-        """Batched value and gradient of the log density over ``rows``
-        parameter rows fitting the spectrum: the hand-written form for
-        the single series DRT, autograd of ``density`` otherwise."""
-        targets = data.target.expand(rows, -1).contiguous()
-        if density is None and flat_eligible(cfg):
-            spec = flat_spec_for(cfg, data)
-            sh = flat_shared_for(cfg, data, targets.dtype)
-            return lambda q: flat_value_and_grad(
-                spec, sh.A, sh.L, sh.vecs, sh.scal, q, targets,
-                jacobian=jacobian)
-        return posterior_value_and_grad(cfg, data, targets,
-                                        jacobian=jacobian, density=density)
-
     def _fit_map(self, cfg, data, gen, iv, density, n_restarts, max_iter,
                  polish, names):
         """MAP: L-BFGS (from the ridge seed or best of ``n_restarts``
-        starts) and the Newton polish of the best row."""
+        starts; its objective and graphs a progcache runner) and the
+        Newton polish of the best row."""
         one = MapObjective(cfg, data, data.target[None], density=density)
         with self.timings.stage("lbfgs"):
             if iv is not None:
                 q0 = ravel(cfg, init_unconstrained(
                     cfg, data, gen, batch_shape=(1,), init_values=iv))
-                res = run_lbfgs(one.value_and_grad, q0, max_iter=max_iter)
+                targets = data.target[None]
             else:
                 q0 = ravel(cfg, init_unconstrained(
                     cfg, data, gen, batch_shape=(1, n_restarts)))
-                rows = MapObjective(cfg, data, data.target.expand(
-                    n_restarts, -1).contiguous(), density=density)
-                res = run_lbfgs_restarts(rows.value_and_grad, q0,
-                                         max_iter=max_iter)
+                targets = data.target.expand(n_restarts, -1).contiguous()
+            entry = map_objective("Inverter.fit", cfg, data, targets,
+                                  density=density, key=("lbfgs", max_iter))
+            if iv is not None:
+                res = run_lbfgs(entry.fn.value_and_grad, q0,
+                                max_iter=max_iter, graphs=entry.graphs)
+            else:
+                res = run_lbfgs_restarts(entry.fn.value_and_grad, q0,
+                                         max_iter=max_iter,
+                                         graphs=entry.graphs)
         n_lbfgs = int(res.n_iter[0])
         if polish:
             # the L-BFGS cap binds before Stan-grade convergence on this
@@ -970,26 +961,34 @@ class Inverter:
                     names):
         """NUTS (one chain per row) or SHMC (the chains pooled as one
         spectrum), then the Stan-style per-draw results and the host
-        diagnostics."""
-        vg = self._density_vg(cfg, data, chains, density, jacobian=True)
+        diagnostics. The value and gradient over the chains' rows (the
+        hand-written form for the single series DRT, autograd of
+        ``density`` otherwise) and the sampler's graphs are a progcache
+        runner, so a later same-shape fit captures nothing."""
+        if sampler == "shmc":
+            run_cfg = (shmc_cfg if shmc_cfg is not None
+                       else SHMCConfig(delta=adapt_delta))
+        else:
+            run_cfg = NUTSConfig(max_depth=max_tree_depth, delta=adapt_delta)
+        entry = _sampler_entry("Inverter.fit", cfg, data,
+                               data.target.expand(chains, -1).contiguous(),
+                               run_cfg, density=density)
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(chains,),
                                            init_values=iv)).contiguous()
         with self.timings.stage("sample"):
             if sampler == "shmc":
-                sh_cfg = (shmc_cfg if shmc_cfg is not None
-                          else SHMCConfig(delta=adapt_delta))
-                draws, info = sample_shmc(vg, q0, warmup, samples, sh_cfg,
-                                          chains, generator=gen,
-                                          time_draws=True)
+                draws, info = sample_shmc(entry.fn, q0, warmup, samples,
+                                          run_cfg, chains, generator=gen,
+                                          time_draws=True,
+                                          graphs=entry.graphs)
                 draws = draws[0]
                 info = {k: (v[0] if isinstance(v, torch.Tensor) else v)
                         for k, v in info.items()}
             else:
                 draws, info = sample_nuts(
-                    vg, q0, warmup, samples,
-                    NUTSConfig(max_depth=max_tree_depth, delta=adapt_delta),
-                    generator=gen, time_draws=True)
+                    entry.fn, q0, warmup, samples, run_cfg, generator=gen,
+                    time_draws=True, graphs=entry.graphs)
                 draws = draws.transpose(0, 1)
                 info = {k: (v.transpose(0, 1) if isinstance(v, torch.Tensor)
                             and v.ndim == 2 and k != "inv_mass" else v)
@@ -1032,8 +1031,8 @@ class Inverter:
             "wall_time_s": float(wall),
             "ess_per_sec": float(np.mean(ess) / max(wall, 1e-9)),
             "e_bfmi": mcmc_diagnostics.e_bfmi(host("energy")),
-            # each draw's seconds (the first holds the CUDA-graph
-            # captures of NUTS; SHMC's are under capture_s)
+            # each draw's seconds (NUTS's first holds its CUDA-graph
+            # captures, also under capture_s; none on a cache hit)
             "draw_s": np.asarray(info["draw_s"]),
             "capture_s": float(np.sum(info.get("capture_s", 0.0))),
         }
@@ -1134,6 +1133,9 @@ class Inverter:
             lp, g = vg(q)
             return -lp, -g
 
+        entry = _drift_loss("Inverter.drift_map_fit", cfg, data,
+                            key=("lbfgs", max_iter))
+
         def loss_row(q_row):
             return -drift_log_density(cfg, data, unravel_drift(cfg, q_row))
 
@@ -1142,7 +1144,8 @@ class Inverter:
                 loss_row)))(q)
 
         with self.timings.stage("lbfgs"):
-            res = run_lbfgs(value_and_grad, q0, max_iter=max_iter)
+            res = run_lbfgs(entry.fn, q0, max_iter=max_iter,
+                            graphs=entry.graphs)
             pick = drift_pick(res.value[None])
             res = MapResult(*(a[pick] for a in res))
         n_lbfgs = int(res.n_iter[0])

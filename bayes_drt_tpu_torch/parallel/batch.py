@@ -27,7 +27,10 @@ sweep schedule (models/drift.py): seeded and random starts of every cell
 as one batch of L-BFGS rows. A DRT's A matrices come from the
 hand-written quadrature kernel (ops/quad.py).
 
-Not ported yet: ChEES, warm starts, the pooled preconditioner and
+Sample-mode fits resume from an earlier fit's sampler state
+(``warm_start``) or sample with one dense metric pooled from a pilot over
+the batch (``precondition='pooled'``). Every captured sampler and solver
+is a progcache runner kept across calls. Not ported yet: ChEES and
 meshes.
 """
 
@@ -49,9 +52,9 @@ from ..infer.nuts import NUTSConfig, sample_nuts
 from ..infer.ridge import (HyperLambdaConfig, RidgeData, ridge_rows,
                            run_hyper_lambda, run_hyper_weights,
                            run_ordinary_ridge)
-from ..infer.shmc_flat import (flat_eligible, flat_shared_for,
-                               flat_spec_for, flat_value_and_grad,
-                               sample_shmc_flat)
+from ..infer.shmc_flat import (cached_value_and_grad, flat_eligible,
+                               flat_shared_for, flat_spec_for,
+                               flat_value_and_grad, sample_shmc_flat)
 from ..models.build import build_posterior, sort_distributions, z_scale_for
 from ..models.drift import (DRIFT_MODELS, DriftConfig, DriftData,
                             constrain_drift, drift_value_and_grad,
@@ -64,6 +67,7 @@ from ..models.posterior import (MONITOR_SCALARS, constrain, flat_dim,
                                 ravel, unravel)
 from ..ops.matrices import (construct_A, construct_L, construct_M,
                             default_epsilon, get_tau_basis)
+from ..progcache import bound, data_shapes
 
 
 def _phase_clock(timing, dev):
@@ -192,7 +196,9 @@ def _make_summarize(cfg, chains, samples, monitor_thin: int = 0):
         var_plus = (half - 1) / half * w_var + b_var / half
         lp_rhat = torch.sqrt(var_plus / torch.clamp(w_var, min=1e-12))
         cmeans = lp.mean(dim=-1)
-        inv_mass = info["inv_mass"]                   # (Bc, C, D)
+        inv_mass = info["inv_mass"]                   # (Bc, C, D), or
+        diag_mass = (inv_mass if inv_mass.ndim == 3   # (Bc, C, D, D) dense
+                     else torch.diagonal(inv_mass, dim1=-2, dim2=-1))
         out = {
             "coef": xs.mean(dim=1),
             "coef_lo": _percentile(xs, 2.5, dim=1),
@@ -222,7 +228,7 @@ def _make_summarize(cfg, chains, samples, monitor_thin: int = 0):
         # power iteration on the pooled draws, centered on the global mean
         # and scaled by the adapted metric
         y = ((draws - flat.mean(dim=1)[:, None, None, :])
-             / torch.sqrt(torch.clamp(inv_mass, min=1e-30))[:, :, None, :])
+             / torch.sqrt(torch.clamp(diag_mass, min=1e-30))[:, :, None, :])
         yf = y.reshape(bc, chains * samples, d)
         nrm = yf.shape[1] - 1
         v = torch.full((bc, d, 1), 1.0 / math.sqrt(d), dtype=yf.dtype,
@@ -353,15 +359,18 @@ class MapObjective:
     torch.func.hessian's forward-over-reverse fails on a float32 matmul (a
     float64 tangent) and is slower. Both take the rows' indices into
     ``targets`` (all rows when None). ``density`` replaces log_density
-    (and the hand-written gradient) by a function of its signature."""
+    (and the hand-written gradient) by a function of its signature.
+    ``shared`` is the hand-written form's FlatShared (built from ``data``
+    when None); ``map_objective`` keeps one as a cache entry."""
 
-    def __init__(self, cfg, data, targets, density=None):
+    def __init__(self, cfg, data, targets, density=None, shared=None):
         self.cfg, self.data, self.targets = cfg, data, targets
         self.density = log_density if density is None else density
         self.flat = flat_eligible(cfg) and density is None
         if self.flat:
             self.spec = flat_spec_for(cfg, data)
-            self.shared = flat_shared_for(cfg, data, targets.dtype)
+            self.shared = (flat_shared_for(cfg, data, targets.dtype)
+                           if shared is None else shared)
 
     def _targets(self, rows):
         return self.targets if rows is None else self.targets[rows]
@@ -388,6 +397,141 @@ class MapObjective:
 
         hess = torch.func.jacrev(torch.func.jacrev(loss))
         return torch.func.vmap(hess)(q, self._targets(rows))
+
+
+def map_objective(tag, cfg, data, targets, density=None, key=()):
+    """A ``MapObjective`` as a progcache runner (``Bound``: its fn is the
+    objective over static copies of data, targets and the hand-written
+    form's FlatShared, this call's values copied in), keyed on ``tag``,
+    the model configuration, the density, the inputs' shapes and dtypes,
+    the device and ``key``."""
+    flat = flat_eligible(cfg) and density is None
+    inputs = (data, targets,
+              flat_shared_for(cfg, data, targets.dtype) if flat else None)
+    full = (tag, cfg, density, data_shapes(inputs), str(targets.device)
+            ) + tuple(key)
+    return bound(full, inputs, lambda buf: MapObjective(
+        cfg, buf[0], buf[1], density=density, shared=buf[2]))
+
+
+def _drift_loss(tag, cfg, data, key=()):
+    """Minus the drift log density's value and gradient over ``data``'s
+    rows as a progcache runner, keyed like ``map_objective``."""
+    def make(d):
+        vg = drift_value_and_grad(cfg, d)
+
+        def loss(q, rows=None):
+            lp, g = vg(q)
+            return -lp, -g
+
+        return loss
+
+    full = (tag, cfg, data_shapes(data), str(data.Z.device)) + tuple(key)
+    return bound(full, data, make)
+
+
+def _sampler_entry(tag, cfg, data, tgt_rows, run_cfg, form="diag",
+                   density=None):
+    """The sampler's value and gradient as a progcache runner, keyed on
+    what shapes the sampler's graphs: NUTS's depth, tree form, energy
+    bound and the metric's form; SHMC's leapfrog counts,
+    ``recompute_grad`` and energy bound."""
+    if isinstance(run_cfg, NUTSConfig):
+        key = ("nuts", run_cfg.max_depth, bool(run_cfg.tree_scan),
+               float(run_cfg.max_energy_error), form)
+    else:
+        key = ("shmc", run_cfg.n_steps, run_cfg.warm_steps,
+               bool(run_cfg.recompute_grad), float(run_cfg.max_energy_error))
+    return cached_value_and_grad(tag, cfg, data, tgt_rows, density=density,
+                                 key=key)
+
+
+def _warm_state(warm_start, cfg, b_real, b, chains, ragged=False):
+    """The sampler state a warm start resumes from, padded like the batch:
+    (state_q (b, C, D), state_inv_mass (b, C, D) or (b, C, D, D),
+    state_step_size (b, C)) numpy, after the JAX package's guards."""
+    ws = warm_start.diagnostics
+    for k in ("state_q", "state_inv_mass", "state_step_size"):
+        if k not in ws:
+            raise ValueError(
+                "warm_start must be a sample-mode BatchFitResult carrying "
+                f"sampler state (missing diagnostics[{k!r}])")
+    if ws.get("state_cfg") is not None and ws["state_cfg"] != cfg:
+        if ragged:
+            raise ValueError(
+                "warm_start was sampled under a different model "
+                "configuration than this fit; resuming across "
+                "parameterizations would mix coordinate systems")
+        raise ValueError(
+            "warm_start was sampled under a different model configuration "
+            f"({ws['state_cfg'].model_name()}, ncp={ws['state_cfg'].ncp}) "
+            f"than this fit ({cfg.model_name()}, ncp={cfg.ncp}); resuming "
+            "across parameterizations would mix coordinate systems")
+    b_prev = np.asarray(ws["state_q"]).shape[0]
+    if b_prev != b_real:
+        # silently padding a smaller prior batch would seed real spectra
+        # with spectrum-0's positions and fixed metric
+        layout = ("the batch layout across calls" if ragged else
+                  "the batch layout (same spectra, same order) across calls")
+        raise ValueError(
+            f"warm_start holds sampler state for {b_prev} spectra but this "
+            f"fit has {b_real}; chained refits must keep {layout}")
+    wq = _pad_rows(np.asarray(ws["state_q"]), b)
+    wm = _pad_rows(np.asarray(ws["state_inv_mass"]), b)
+    weps = _pad_rows(np.asarray(ws["state_step_size"]), b)
+    if wq.shape[1] != chains:
+        raise ValueError(f"warm_start carries {wq.shape[1]} chains, this "
+                         f"fit requests {chains}")
+    return wq, wm, weps
+
+
+def _warm_run(sampler, run_cfg, warm, dtype, device):
+    """(q0 rows, run_cfg with the metric held fixed, metric,
+    init_step_size) of a warm start: NUTS resumes every chain with its
+    own metric and step size; SHMC every spectrum with its chains' mean
+    metric and mean step size, as the JAX package does."""
+    wq, wm, weps = warm
+    b, chains, dim = wq.shape
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a),
+                               device=device).to(dtype)
+
+    q0 = t(wq.reshape(b * chains, dim))
+    run_cfg = run_cfg._replace(adapt_mass=False)
+    if sampler == "nuts":
+        return (q0, run_cfg, t(wm.reshape((b * chains,) + wm.shape[2:])),
+                t(weps.reshape(-1)))
+    if wm.ndim == 4:
+        raise ValueError("warm_start carries a dense metric; sampler='shmc' "
+                         "resumes from diagonal metrics only (use "
+                         "sampler='nuts')")
+    return q0, run_cfg, t(wm.mean(axis=1)), t(weps.mean(axis=1))
+
+
+def pooled_metric(pilot):
+    """One dense metric from pilot draws (b, C, S, D): each (spectrum,
+    chain) centered on its own mean, so only within-posterior covariance
+    pools, into one float64 covariance on the host, jittered until its
+    Cholesky factor exists (the JAX package's pooled preconditioner).
+    Returns (m_inv, chol) numpy float64."""
+    d64 = np.asarray(pilot, np.float64)
+    centered = d64 - d64.mean(axis=2, keepdims=True)
+    flat_d = centered.reshape(-1, d64.shape[-1])
+    dof = max(d64.shape[0] * d64.shape[1] * (d64.shape[2] - 1), 1)
+    cov = flat_d.T @ flat_d / dof
+    dim = cov.shape[0]
+    jitter = max(1e-6 * float(np.mean(np.diag(cov))), 1e-12)
+    for _ in range(8):
+        try:
+            chol64 = np.linalg.cholesky(cov + jitter * np.eye(dim))
+            break
+        except np.linalg.LinAlgError:
+            jitter *= 10.0
+    else:
+        raise RuntimeError("pooled pilot covariance is not positive "
+                           "definite; use precondition=None")
+    return cov + jitter * np.eye(dim), chol64
 
 
 def _ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
@@ -515,6 +659,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                       random_seed: int = 0, max_tree_depth: int = 10,
                       dtype=None, distributions=None,
                       precondition: Optional[str] = None,
+                      pilot_warmup: int = 50, pilot_samples: int = 25,
                       ncp: bool = False, unroll: int = 1,
                       flat_tree: bool = False, tree_scan: bool = False,
                       scan_unroll: int = 1, basis: str = "gaussian",
@@ -611,10 +756,30 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     sigma_out at ``outlier_monitor_indices`` in impedance units (the
     simulation-based calibration's rank statistics, sbc.py).
 
+    ``warm_start`` (sample mode): an earlier sample-mode result for the
+    same batch layout (spectra, chains, model). NUTS resumes every chain
+    from its last position with its own metric held fixed and its own
+    step size seeding the search (the step size re-adapts over
+    ``warmup``); SHMC resumes every spectrum with its chains' mean metric
+    and mean step size. A chained refit of slowly moving spectra needs a
+    fraction of a cold fit's warmup; escalation is off by default.
+
+    ``precondition='pooled'`` (NUTS): a diagonal-metric pilot of
+    ``pilot_warmup`` + ``pilot_samples`` draws over the batch, its draws
+    centered per (spectrum, chain) and pooled into one dense metric
+    (``pooled_metric``) shared by every chain, then NUTS from the pilot's
+    last states with that metric fixed and max(20, warmup - pilot_warmup
+    - pilot_samples) warmup draws.
+
+    Every captured piece (the NUTS trees, the generic SHMC trajectories,
+    the L-BFGS iterations) is a progcache runner kept across calls: a
+    later call of the same shapes and settings copies its data into the
+    runner's buffers and replays without capturing.
+
     ``basis`` names the RBF family (construct_L, like the JAX package's,
     builds the penalty's orders 1 and 2 for 'gaussian' only, so other
-    bases raise its ValueError). Not ported (they raise, naming their
-    ROADMAP item): ChEES, ``warm_start`` and ``precondition`` (item 12).
+    bases raise its ValueError). Not ported (it raises, naming its
+    ROADMAP item): ChEES (item 12).
     """
     if quality is not None:
         if quality not in QUALITY_PRESETS:
@@ -666,11 +831,19 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if sampler not in ("nuts", "shmc"):
         raise ValueError(f"Unknown sampler {sampler!r}; options are "
                          "'nuts', 'chees', 'shmc'")
-    for name, val in (("warm_start", warm_start),
-                      ("precondition", precondition)):
-        if val is not None:
-            raise NotImplementedError(f"{name}= is not ported yet (ROADMAP "
-                                      "Queue 1 item 12)")
+    if warm_start is not None and precondition is not None:
+        raise ValueError("warm_start and precondition are mutually "
+                         "exclusive")
+    if precondition is not None:
+        if precondition != "pooled":
+            raise ValueError(f"Unknown precondition {precondition!r}; the "
+                             "option is 'pooled'")
+        if sampler == "shmc":
+            raise ValueError(
+                "precondition='pooled' builds a dense metric; "
+                "sample_chees/sample_shmc support diagonal metrics only "
+                "(their chain-pooled Welford adaptation replaces the pooled "
+                "pilot). Use sampler='nuts' or drop precondition.")
     flat = (n_dists == 1 and not single_parallel and not outliers)
     if init_from_ridge and sampler == "shmc" and flat:
         raise ValueError("init_from_ridge does not support the flat-chain "
@@ -700,23 +873,20 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     z_scales, targets = _scaled_targets(Z_batch, b_real, z_scale, dt, dev,
                                         dists_norm)
 
+    warm = None
+    if warm_start is not None:
+        warm = _warm_state(warm_start, cfg, b_real, b, chains)
     phi_mon, phi_eval = _phi_mats(tau, eps, gamma_eval_tau, dt, dev)
     D = flat_dim(cfg, data.freq.shape[0])
     gen = torch.Generator(device=dev).manual_seed(int(random_seed))
     tgt_rows = targets.repeat_interleave(chains, dim=0).contiguous()
     flat_args = None
-    if flat:
-        spec = flat_spec_for(cfg, data)
-        shared = flat_shared_for(cfg, data, dt)
-        flat_args = (spec, shared, tgt_rows)
-
-        def vg(q):
-            return flat_value_and_grad(spec, shared.A, shared.L, shared.vecs,
-                                       shared.scal, q, tgt_rows)
-    else:
-        if sampler == "shmc" and (sh_cfg.pallas_traj or sh_cfg.flat_chain):
-            flat_spec_for(cfg, data)       # raises: not the flat family
-        vg = posterior_value_and_grad(cfg, data, tgt_rows)
+    run_cfg = sh_cfg if sampler == "shmc" else nuts_cfg
+    if sampler == "shmc" and flat:
+        flat_args = (flat_spec_for(cfg, data), flat_shared_for(cfg, data, dt),
+                     tgt_rows)
+    elif sampler == "shmc" and (sh_cfg.pallas_traj or sh_cfg.flat_chain):
+        flat_spec_for(cfg, data)           # raises: not the flat family
     mark("setup")
     init_values = None
     if init_from_ridge:
@@ -729,9 +899,31 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                                        batch_shape=(b, chains),
                                        init_values=init_values))
     q0 = q0.reshape(b * chains, D).contiguous()
-    draws, info = _run_sampler(sampler, vg, q0, chains, warmup, samples,
-                               sh_cfg if sampler == "shmc" else nuts_cfg,
-                               gen, timing, flat_args)
+    metric, init_eps, form, run_warmup = None, 1.0, "diag", warmup
+    if warm is not None:
+        q0, run_cfg, metric, init_eps = _warm_run(sampler, run_cfg, warm, dt,
+                                                  dev)
+        if metric.ndim == 3:
+            form = "dense_rows"
+    elif precondition == "pooled":
+        pilot = _sampler_entry("fit_spectra_batch", cfg, data, tgt_rows,
+                               nuts_cfg)
+        p_draws, _ = sample_nuts(pilot.fn, q0, pilot_warmup, pilot_samples,
+                                 nuts_cfg, generator=gen,
+                                 graphs=pilot.graphs)
+        m_inv, chol = pooled_metric(
+            _per_spectrum(p_draws, b, chains).cpu().numpy())
+        metric = (m_inv, chol)
+        q0 = p_draws[-1].contiguous()
+        run_warmup = max(20, warmup - pilot_warmup - pilot_samples)
+        run_cfg = nuts_cfg._replace(adapt_mass=False)
+        form = "dense"
+        mark("pilot")
+    entry = (None if flat_args is not None else _sampler_entry(
+        "fit_spectra_batch", cfg, data, tgt_rows, run_cfg, form))
+    draws, info = _run_sampler(sampler, entry, q0, chains, run_warmup,
+                               samples, run_cfg, gen, timing, flat_args,
+                               metric, init_eps)
     mark("sample")
     out = _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
                             phi_mon, phi_eval, monitor_thin)
@@ -739,6 +931,9 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     result = _sampled_result(cfg, out, z_scales[:b_real], dists_norm, tau,
                              eps, basis, n_eval=phi_eval.shape[0])
     diagnostics = result.diagnostics
+    # the model configuration beside the sampler state, so that a warm
+    # start refuses a resume across parameterizations
+    diagnostics["state_cfg"] = cfg
     if "z_hat_mean" in diagnostics:
         # the training grid (descending), where predict_Z_batch serves the
         # draws' mean prediction
@@ -811,34 +1006,53 @@ def _phi_mats(tau, eps, gamma_eval_tau, dtype, device):
     return phi_mon.to(dtype), phi_eval.to(dtype)
 
 
-def _run_sampler(sampler, vg, q0, chains, warmup, samples, cfg, gen,
-                 timing, flat_args=None):
+def _run_sampler(sampler, entry, q0, chains, warmup, samples, cfg, gen,
+                 timing, flat_args=None, metric=None, init_step_size=1.0):
     """Sample the (b*chains, D) rows q0: NUTS (``cfg`` a NUTSConfig), the
     flat-chain SHMC sampler (``flat_args`` = (spec, shared, targets)) or
-    the generic SHMC sampler on ``vg``. Returns draws (b, C, S, D) and the
-    info dict with a leading b axis, the SHMC samplers' per-spectrum
-    metric broadcast to every chain."""
+    the generic SHMC sampler on the runner ``entry`` (a progcache
+    ``Bound``: its value and gradient and its graphs' slot). ``metric``
+    and ``init_step_size`` are per chain for NUTS ((R, D) or (R, D, D),
+    (R,), or a shared dense (m_inv, chol) pair), per spectrum for SHMC
+    ((b, D), (b,)). Returns draws (b, C, S, D) and the info dict with a
+    leading b axis, the SHMC samplers' per-spectrum metric broadcast to
+    every chain and a dense NUTS metric as (b, C, D, D)."""
     b = q0.shape[0] // chains
     if sampler == "shmc":
         if flat_args is not None:
             spec, shared, tgt_rows = flat_args
             draws, info = sample_shmc_flat(
                 spec, shared, tgt_rows, q0, warmup, samples, cfg, chains,
-                generator=gen, time_traj=timing and q0.device.type == "cuda")
+                generator=gen, time_traj=timing and q0.device.type == "cuda",
+                metric=metric, init_step_size=init_step_size)
         else:
-            draws, info = sample_shmc(vg, q0, warmup, samples, cfg, chains,
-                                      generator=gen, time_draws=timing)
+            draws, info = sample_shmc(entry.fn, q0, warmup, samples, cfg,
+                                      chains, generator=gen,
+                                      init_step_size=init_step_size,
+                                      metric=metric, time_draws=timing,
+                                      graphs=entry.graphs)
         info["inv_mass"] = info["inv_mass"][:, None, :].expand(-1, chains, -1)
         return draws, info
-    draws, raw = sample_nuts(vg, q0, warmup, samples, cfg, generator=gen,
-                             time_draws=timing)
+    draws, raw = sample_nuts(entry.fn, q0, warmup, samples, cfg,
+                             generator=gen, metric=metric,
+                             init_step_size=init_step_size,
+                             time_draws=timing, graphs=entry.graphs)
     info = {k: _per_spectrum(raw[k], b, chains)
             for k in ("logp", "accept_prob", "diverging", "n_leapfrog",
                       "energy", "warmup_diverging")}
     info["step_size"] = raw["step_size"].reshape(b, chains)
-    info["inv_mass"] = raw["inv_mass"].reshape(b, chains, -1)
+    m_inv = raw["inv_mass"]
+    d = q0.shape[1]
+    if m_inv.ndim == 2:
+        info["inv_mass"] = m_inv.reshape(b, chains, d)
+    elif m_inv.shape[0] == 1:
+        info["inv_mass"] = m_inv.expand(b * chains, d, d).reshape(
+            b, chains, d, d)
+    else:
+        info["inv_mass"] = m_inv.reshape(b, chains, d, d)
     if timing:
         info["draw_s"] = raw["draw_s"]
+        info["capture_s"] = raw["capture_s"]
     return _per_spectrum(draws, b, chains), info
 
 
@@ -936,7 +1150,6 @@ def _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dtype, device,
     z_scales, targets = _scaled_targets(Z_batch, b_real, z_scale, dtype,
                                         device, dists_norm)
     gen = torch.Generator(device=device).manual_seed(int(random_seed))
-    obj = MapObjective(cfg, data, targets)
     mark("setup")
     if init_from_ridge:
         iv = _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data,
@@ -946,13 +1159,20 @@ def _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dtype, device,
         mark("ridge")
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen, batch_shape=(b,),
                                            init_values=iv))
-        res = run_lbfgs(obj.value_and_grad, q0, max_iter=max_iter)
+        entry = map_objective("fit_spectra_batch", cfg, data, targets,
+                              key=("lbfgs", max_iter))
+        obj = entry.fn
+        res = run_lbfgs(obj.value_and_grad, q0, max_iter=max_iter,
+                        graphs=entry.graphs)
     else:
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(b, n_restarts)))
-        rows = MapObjective(cfg, data, targets.repeat_interleave(
-            n_restarts, dim=0))
-        res = run_lbfgs_restarts(rows.value_and_grad, q0, max_iter=max_iter)
+        entry = map_objective("fit_spectra_batch", cfg, data,
+                              targets.repeat_interleave(n_restarts, dim=0),
+                              key=("lbfgs", max_iter))
+        res = run_lbfgs_restarts(entry.fn.value_and_grad, q0,
+                                 max_iter=max_iter, graphs=entry.graphs)
+        obj = MapObjective(cfg, data, targets)
     mark("lbfgs")
     n_lbfgs = res.n_iter
     if polish:
@@ -1113,16 +1333,16 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
     recomputes). ``mode='optimize'``: L-BFGS from ``n_restarts`` random
     starts per spectrum, capped at ``max_iter``, no polish and no ridge
     seed, each spectrum keeping its best finite optimum; ``gamma_lo`` and
-    ``gamma_hi`` are None. The other arguments are ``fit_spectra_batch``'s.
-    ``sampler='chees'``, ``warm_start`` and ``mesh`` raise (ROADMAP item
-    12)."""
+    ``gamma_hi`` are None. ``warm_start`` (sample mode) resumes from an
+    earlier ragged fit of the same batch layout as ``fit_spectra_batch``
+    does. The other arguments are ``fit_spectra_batch``'s.
+    ``sampler='chees'`` and ``mesh`` raise (ROADMAP item 12)."""
     if mode not in ("sample", "optimize"):
         raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
                          "'optimize'")
-    for name, val in (("mesh", mesh), ("warm_start", warm_start)):
-        if val is not None:
-            raise NotImplementedError(f"{name}= is not ported yet (ROADMAP "
-                                      "Queue 1 item 12)")
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
+                                  "item 12)")
     if mode == "sample":
         if sampler == "chees":
             raise NotImplementedError("sampler='chees' is not ported yet "
@@ -1152,9 +1372,11 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
     z_scales = z_scales[:b_real]
 
     if mode == "optimize":
-        vg = posterior_value_and_grad(
-            cfg, data, targets.repeat_interleave(n_restarts, dim=0),
-            jacobian=False)
+        entry = cached_value_and_grad(
+            "fit_spectra_ragged", cfg, data,
+            targets.repeat_interleave(n_restarts, dim=0), jacobian=False,
+            density=log_density, key=("lbfgs", max_iter))
+        vg = entry.fn
 
         def loss(q):
             lp, g = vg(q)
@@ -1162,20 +1384,30 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
 
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(b, n_restarts)))
-        res = run_lbfgs_restarts(loss, q0, max_iter=max_iter)
+        res = run_lbfgs_restarts(loss, q0, max_iter=max_iter,
+                                 graphs=entry.graphs)
         mark("lbfgs")
         result = _map_result(cfg, data, res, z_scales, dists_norm, tau, eps,
                              first_basis)
     else:
         phi_mon, phi_eval = _phi_mats(tau, eps, gamma_eval_tau, dt, dev)
-        vg = posterior_value_and_grad(
-            cfg, data, targets.repeat_interleave(chains, dim=0))
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(b, chains)))
-        draws, info = _run_sampler(sampler, vg,
-                                   q0.reshape(b * chains, D).contiguous(),
-                                   chains, warmup, samples, run_cfg, gen,
-                                   timing)
+        q0 = q0.reshape(b * chains, D).contiguous()
+        metric, init_eps, form = None, 1.0, "diag"
+        if warm_start is not None:
+            warm = _warm_state(warm_start, cfg, b_real, b, chains,
+                               ragged=True)
+            q0, run_cfg, metric, init_eps = _warm_run(sampler, run_cfg, warm,
+                                                      dt, dev)
+            if metric.ndim == 3:
+                form = "dense_rows"
+        entry = _sampler_entry("fit_spectra_ragged", cfg, data,
+                               targets.repeat_interleave(chains, dim=0),
+                               run_cfg, form, density=log_density)
+        draws, info = _run_sampler(sampler, entry, q0, chains, warmup,
+                                   samples, run_cfg, gen, timing,
+                                   metric=metric, init_step_size=init_eps)
         mark("sample")
         out = _summarize_blocks(cfg, data, draws, info, chains, samples,
                                 b_real, phi_mon, phi_eval)
@@ -1780,14 +2012,10 @@ def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
         q0 = torch.cat([q0, ravel_drift(cfg, init_drift_params(
             cfg, data, gen, batch_shape=(b, n_restarts)))], dim=1)
     rows = q0.shape[1]
-    vg = drift_value_and_grad(cfg, data._replace(
-        Z=data.Z.repeat_interleave(rows, dim=0)))
-
-    def loss(q):
-        lp, g = vg(q)
-        return -lp, -g
-
-    res = run_lbfgs(loss, q0.reshape(b * rows, -1), max_iter=max_iter)
+    entry = _drift_loss("drift_fit_spectra_batch", cfg, data._replace(
+        Z=data.Z.repeat_interleave(rows, dim=0)), key=("lbfgs", max_iter))
+    res = run_lbfgs(entry.fn, q0.reshape(b * rows, -1), max_iter=max_iter,
+                    graphs=entry.graphs)
     mark("lbfgs")
     pick = (torch.arange(b, device=dev) * rows
             + drift_pick(res.value.reshape(b, rows)))

@@ -23,7 +23,7 @@ line is printed):
   5. the trajectory kernel against the plain trajectory in float32 at the
      main path's final sampler states, and its time per launch.
   6. the escalation path at full width: B=64 noisy ZARC spectra through
-     the same SHMC fit at 4 x (100 + 150) with every spectrum forced
+     the same SHMC fit at 4 x (100 + 100) with every spectrum forced
      through the refit (NUTS
      max_depth=8, tree_scan, seeded from the batched hyper-lambda ridge);
      the splice, the gate figures of the 64 and the seconds of the ridge,
@@ -52,7 +52,7 @@ line is printed):
   11. the Series-Parallel configuration of the extended sweep (DRT +
      TP-DDT, x_scale 0.8, basis logspace(6, -2, 81) each, N=81, D=336,
      nonneg): MAP on 1024 spectra in the default form and NUTS md8
-     (tree_scan, ncp) on 256 of them at 4 x (100 + 100), both through the
+     (tree_scan, ncp) on 256 of them at 4 x (100 + 25), both through the
      autograd value and gradient replayed as CUDA graphs, gated on finite
      coefficients, the median impedance residual against the noiseless
      spectrum (<= 0.02), the median divergence rate (< 0.05) and the DRT
@@ -91,7 +91,8 @@ line is printed):
      the default escalation, the gate forced, so each is refitted by NUTS
      md8 from the Inverter's admittance ridge; (d) Inverter.fit: MAP
      twice, NUTS md10 at a cut budget on a second same-shape spectrum,
-     then at the JAX package's Inverter test budget on the first (there
+     then at the JAX package's Inverter test warmup, 2 x (120 + 60), on
+     the first, a cache hit whose first draw captures nothing (there
      also rhat_max < 5), SHMC, each gated as
      the JAX package's Inverter tests, check_outliers and a save/load
      round trip.
@@ -100,7 +101,7 @@ line is printed):
      drift_fit_spectra_batch once, gated on finite coefficients, every
      cell's median relative Z residual (< 0.05), tau_1 within its bounds
      and the median over cells (<= 1.5x the JAX package's own), then the
-     bench's serial line (Inverter.drift_map_fit of one cell, twice) and
+     bench's serial line (Inverter.drift_map_fit of one cell, once) and
      the fleet's speedup; (b) Inverter.drift_map_fit on the JAX drift
      test's three-sweep spectrum (RQ with 63 restarts: at its 8 the gates
      hold on 7 of 10 seeds in the JAX package; x1) in float64 with its
@@ -129,8 +130,24 @@ line is printed):
      and the recovered gamma against the analytic ZARC DRT; one
      sample-mode bucket under profiling.trace, whose Chrome trace must
      name the trajectory kernel once a draw.
-  16. one JSON line listing both kernels with their launches (phases 4,
-     6, 7, 10, 11, 12, 13, 14 and 15) and times; K2's bound counts the function's
+  16. resumed and preconditioned sampling and the cross-call cache: (a)
+     progcache cleared, then Inverter.fit (NUTS md8, SHMC, MAP),
+     Inverter.drift_map_fit and fit_spectra_batch's NUTS refit form each
+     fitted on X, on another same-shape Y and on X again, the last a
+     counted hit with no capture whose output equals the first bit for
+     bit; (b) warm_start on spectra scaled by 1.03: the main path (K1)
+     resumed from phase 4 at 4 x (75 + 250) with the five gates and 325
+     K1 launches, NUTS md8 resumed from phase 6's 64 spectra with the JAX
+     chained-refit test's gates, and a ragged resume of 64 fleet spectra;
+     (c) precondition="pooled" on 64 main-path spectra (NUTS md8, a 50 +
+     25 pilot, warmup 150, 100 draws) with the JAX pooled test's gates;
+     (d) dense_mass and a fixed dense metric on the JAX tests' correlated
+     Gaussians as 256 rows of CUDA-graph trees, and the per-row dense
+     metric's memory at R=4096, D=211; (e) float64 card-vs-CPU parity of
+     one NUTS transition with a shared dense metric at D=211.
+     The cache's stats are printed after every phase.
+  17. one JSON line listing both kernels with their launches (phases 4,
+     6, 7, 10 to 16) and times; K2's bound counts the function's
      least fp64 work a node, and the count its compiled loop issues
      (cuobjdump -sass) is printed beside it.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -161,10 +178,10 @@ GATE_MIN_ESS = 3.5        # median per-spectrum min-ESS
 GATE_LOGP_RHAT = 4.0      # median per-spectrum logp split-Rhat
 # the escalation phase: spectra, and its budget (the bench's unless cut to
 # keep the smoke's time; a cut is printed): 4 x (100 + 150) since the SBC
-# and CLI phase came (phase 11's NUTS md8 runs 4 x (100 + 100))
+# and CLI phase came, 4 x (100 + 100) since the resume phase came
 B_ESC = 64
 ESC_WARMUP = 100
-ESC_SAMPLES = 150
+ESC_SAMPLES = 100
 NUTS_DEPTH = 8            # the refit's max_tree_depth
 # phase 9's float64 NUTS transition: the card runs the main path's 4,096
 # rows, the CPU reference 1,024 of them, one a spectrum (chain i % 4 of
@@ -174,10 +191,10 @@ PARITY_CPU_ROWS = 1024
 # the default call's phase: the main path's B, and a budget cut from the
 # default 4 x (500 + 500) to keep the smoke's time (4 x (60 + 20) until
 # the generic SHMC and ragged phase came, 4 x (30 + 10) until the SBC
-# and CLI phase came)
+# and CLI phase came, 4 x (20 + 10) until the resume phase came)
 B_DEFAULT = B
-DEFAULT_WARMUP = 20
-DEFAULT_SAMPLES = 10
+DEFAULT_WARMUP = 10
+DEFAULT_SAMPLES = 5
 
 # the MAP phase: the default form's caps and restarts, the production
 # form's cap, its gates (of Rp; p90 is the JAX MAP tests' per-spectrum
@@ -204,7 +221,9 @@ SP_SEED = 11
 SP_B_MAP = 1024
 SP_B_SAMPLE = 256
 SP_WARMUP = 100
-SP_SAMPLES = 100
+# 100 draws until the resume phase came (its NUTS md8 fit then 63 to 73
+# s of the smoke's 1,200)
+SP_SAMPLES = 25
 SP_DEPTH = 8
 SP_B_SMALL = 64
 # the float64 NUTS transition parity's spectra (of SP_B_SAMPLE; 256 rows:
@@ -301,7 +320,10 @@ INV_NUTS_SAMPLES = 20
 # CPU, scripts/jax_inverter_reference.py), so there ess_min is gated and
 # rhat_max printed
 INV_NUTS_TEST_WARMUP = 120
-INV_NUTS_TEST_SAMPLES = 120
+# the JAX test's 120 draws until the resume phase came (the fit then 107
+# to 129 s of the smoke's 1,200); its warmup, which sets the adaptation
+# the gates read, is kept
+INV_NUTS_TEST_SAMPLES = 60
 INV_GATE_RHAT_MAX = 5.0
 INV_GATE_ESS_MIN = 2.0
 
@@ -357,6 +379,54 @@ CLI_GATE_MAP_P90 = 0.08     # the JAX MAP tests' bar
 CLI_GATE_RIDGE_RP = 0.15    # tests/test_cli.py:44-45, every spectrum's Rp
 CLI_GATE_CV_RMSE = 0.10     # tests/test_cli.py:98-101
 CLI_PEAK_RMSE_REL = 0.15    # tests/test_cli.py:136
+
+# phase 16: (a) the cross-call cache on Inverter.fit (NUTS md8 and SHMC
+# at short budgets, MAP and drift capped without polish: what is checked
+# is the cache, not the fit) and on fit_spectra_batch's NUTS refit form
+# on CACHE_REFIT_B spectra; (b) warm starts on spectra scaled by
+# WARM_SCALE at WARM_WARMUP warmup draws (the JAX package's chained-refit
+# test scales by 1.03 and resumes at a fifth of its warmup), NUTS at
+# WARM_NUTS_SAMPLES draws, the ragged resume on RG_WARM_B spectra of the
+# fleet; (c) the pooled preconditioner at the JAX package's test
+# settings but md8, on POOL_B of the main path's spectra; (d) the dense
+# Gaussians as DENSE_ROWS rows; (e) the dense transition's float64 parity
+# rows
+CACHE_SEED = 21
+CACHE_NUTS = (10, 5)
+CACHE_REFIT = (5, 3)
+CACHE_SHMC = (20, 20)
+CACHE_MAP_ITER = 200
+CACHE_REFIT_B = 8
+WARM_SCALE = 1.03
+WARM_WARMUP = 30
+# the main path's resume at 4 x (30 + 250) read a median logp split-Rhat
+# of 4.18, over the 4.0 gate, the other four gates green (NVIDIA H100
+# 80GB HBM3, 700 W): thirty dual-averaging steps from the re-searched
+# step size leave it small (divergence 0.04% against the cold fit's
+# 13%), so the chains move less a draw; it resumes at 75, half the cold
+# warmup
+WARM_MAIN_WARMUP = 75
+WARM_NUTS_SAMPLES = 100
+RG_WARM_B = 64
+RG_WARM_COLD = (100, 150)   # the cold ragged fit the resume starts from
+POOL_B = 64
+POOL_WARMUP = 150
+POOL_PILOT = (50, 25)
+POOL_SAMPLES = 100
+POOL_GATE_RMSE = 0.06       # tests/test_parallel.py:216
+POOL_GATE_DIV = 0.05
+DENSE_ROWS = 256
+# the Gaussians' trees: md8, not the JAX tests' default md10 (their mean
+# trees read 7 to 23 leaves on an NVIDIA H100 80GB HBM3 at 700 W, and
+# capturing md10's 1,023-leaf graphs cost more than the draws); the
+# longest tree of each run is printed
+DENSE_DEPTH = 8
+DENSE_PARITY_ROWS = 256
+
+# results of earlier phases that phase 16 resumes from (filled by
+# phase_main and phase_escalation; a script running phase 16 alone runs
+# them first)
+KEEP = {}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -822,8 +892,11 @@ def phase_main(card):
     failed = [k for k, v in gates.items() if not v]
     if failed:
         raise AssertionError(f"main path quality gates failed: {failed}")
-    return launches, {k: d[k] for k in ("state_q", "state_inv_mass",
-                                        "state_step_size")}
+    state = {k: d[k] for k in ("state_q", "state_inv_mass",
+                               "state_step_size")}
+    KEEP["main"] = (freq, Zb, res, tau, gt, rp)
+    KEEP["state"] = state
+    return launches, state
 
 
 def gamma_figures(res, tau, gt, rp):
@@ -923,6 +996,7 @@ def phase_escalation(card):
     failed = [k for k, v in gates.items() if not v]
     if failed:
         raise AssertionError(f"escalation quality gates failed: {failed}")
+    KEEP["esc"] = (freq, Zb, res, tau, gt, rp, rmse)
     return launches
 
 
@@ -1036,8 +1110,9 @@ def phase_nuts_timing(card, state):
     from bayes_drt_tpu_torch.infer.nuts import (GraphedTree,
                                                 nuts_transition_flat)
 
-    def timed(fn, reps):
-        fn()
+    def timed(fn, reps, warm=True):
+        if warm:
+            fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -1045,22 +1120,25 @@ def phase_nuts_timing(card, state):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps, res
 
+    print("nuts timing: GraphedTree built directly, outside the cross-call "
+          "cache, so that every capture here is timed")
     out = {}
     for R in (B * CHAINS,):
         vg, q, lp, g, eps, m_inv = nuts_rows(torch.float32, state, R)
         for depth, scan in ((NUTS_DEPTH, True), (10, False)):
             noise = nuts_noise_np(R, q.shape[1], depth, 5, torch.float32,
                                   "cuda")
+            # eager: no warm-up run, its ops ran in phases 4 to 7
             e_s, e_out = timed(lambda: nuts_transition_flat(
                 vg, q, lp, g, noise, eps, m_inv, max_depth=depth,
-                tree_scan=scan), 2)
+                tree_scan=scan), 1, warm=False)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tree = GraphedTree(vg, q, lp, g, noise, eps, m_inv, depth,
                                1000.0, early_stop=not scan)
             torch.cuda.synchronize()
             capture_s = time.perf_counter() - t0
-            g_s, g_out = timed(lambda: tree(q, lp, g, noise, eps, m_inv), 3)
+            g_s, g_out = timed(lambda: tree(q, lp, g, noise, eps, m_inv), 2)
             same = all(torch.equal(a, b) for a, b in
                        zip(e_out[:3] + tuple(e_out[3]),
                            g_out[:3] + tuple(g_out[3])))
@@ -1077,7 +1155,8 @@ def phase_nuts_timing(card, state):
           f"[{card}]")
 
 
-def nuts_transition_parity(card, label, R, depth, seed, rows, cpu_idx=None):
+def nuts_transition_parity(card, label, R, depth, seed, rows, cpu_idx=None,
+                           metric=None):
     """One float64 NUTS transition (max_depth ``depth``, noise from numpy
     ``seed``) of the rows ``rows(device)`` gives ((value_and_grad, q, logp,
     grad, eps, m_inv) on that device): on the card replayed as CUDA graphs
@@ -1091,13 +1170,18 @@ def nuts_transition_parity(card, label, R, depth, seed, rows, cpu_idx=None):
     the CPU's evaluation at the card's own selected point (after up to 255
     leapfrogs the two summation orders leave ~1e-12 relative differences
     in q, which a stiff posterior turns into ~1e-7 in grad; printed).
-    Prints every differing row and returns their count."""
+    ``metric(device)``, when given, is a dense metric's (m_inv, chol) in
+    place of the rows' diagonal one. Prints every differing row and
+    returns their count."""
     import torch
     from bayes_drt_tpu_torch.infer.nuts import (GraphedTree, NUTSNoise,
                                                 nuts_transition_flat)
     outs = {}
     for dev in ("cuda", "cpu"):
         vg, q, lp, g, eps, m_inv = rows(dev)
+        chol = None
+        if metric is not None:
+            m_inv, chol = metric(dev)
         noise = nuts_noise_np(R, q.shape[1], depth, seed, torch.float64, dev)
         if dev == "cpu" and cpu_idx is not None:
             i = torch.as_tensor(cpu_idx)
@@ -1105,10 +1189,11 @@ def nuts_transition_parity(card, label, R, depth, seed, rows, cpu_idx=None):
                               noise.swap_u[:, i], noise.leaf_u[:, i])
         t0 = time.perf_counter()
         if dev == "cuda":
-            tree = GraphedTree(vg, q, lp, g, noise, eps, m_inv, depth, 1000.0)
-            o = tree(q, lp, g, noise, eps, m_inv)
+            tree = GraphedTree(vg, q, lp, g, noise, eps, m_inv, depth, 1000.0,
+                               mass_chol=chol)
+            o = tree(q, lp, g, noise, eps, m_inv, chol)
             eager = nuts_transition_flat(vg, q, lp, g, noise, eps, m_inv,
-                                         max_depth=depth)
+                                         max_depth=depth, mass_chol=chol)
             torch.cuda.synchronize()
             del tree
             flat_o = o[:3] + tuple(o[3])
@@ -1122,7 +1207,7 @@ def nuts_transition_parity(card, label, R, depth, seed, rows, cpu_idx=None):
                                      "differs from eager on the card")
         else:
             o = nuts_transition_flat(vg, q, lp, g, noise, eps, m_inv,
-                                     max_depth=depth)
+                                     max_depth=depth, mass_chol=chol)
             vg_cpu = vg
         outs[dev] = [t.cpu() for t in o[:3]] + [t.cpu() for t in o[3]]
         print(f"{label}: {dev} transition {time.perf_counter() - t0:.2f} s"
@@ -2489,21 +2574,23 @@ def inverter_fits(card, freq, z, tau_gt, rp, failed):
     """(d) Inverter.fit on the card (float32): the default MAP (2
     restarts, cap 4000, polish) twice on two same-shape spectra, NUTS
     md10 at a cut budget on the second spectrum, then at the JAX
-    package's Inverter test budget on the first (so the second NUTS fit
-    has the first one's shape and other data), SHMC at the default budget
-    (both samplers non-centered);
+    package's Inverter test warmup on the first (so the second NUTS fit
+    has the first one's shape and other data: a cache hit, its first draw
+    within 2x its median, no capture), SHMC at the default budget (both
+    samplers non-centered);
     each gated as the JAX package's Inverter tests gate them (ess_min >
-    INV_GATE_ESS_MIN; rhat_max < INV_GATE_RHAT_MAX at the test budget);
+    INV_GATE_ESS_MIN; rhat_max < INV_GATE_RHAT_MAX at the test warmup);
     check_outliers on a corrupted point; a save/load round trip through
     pickle predicting the same Z bit for bit."""
     import pickle
-    from bayes_drt_tpu_torch import Inverter, sim
+    from bayes_drt_tpu_torch import Inverter, progcache, sim
     _, zb2 = sim.make_benchmark_batch(2, circuit="ZARC", noise_level=0.0025,
                                       seed=INV_SEED + 1)
     print(f"inverter fits: NUTS md10 budget cut to 2x({INV_NUTS_WARMUP}+"
           f"{INV_NUTS_SAMPLES}) and, once, to the JAX package's Inverter "
-          f"test budget 2x({INV_NUTS_TEST_WARMUP}+{INV_NUTS_TEST_SAMPLES}),"
-          f" from 2x(200+200); SHMC at the default 2x(200+200) [{card}]")
+          f"test warmup 2x({INV_NUTS_TEST_WARMUP}+{INV_NUTS_TEST_SAMPLES}) "
+          f"(the test's 2x(120+120) until the resume phase came), from "
+          f"2x(200+200); SHMC at the default 2x(200+200) [{card}]")
     out = {}
     runs = (("map", z, {}), ("map_second", zb2[0], {}),
             ("nuts", zb2[0], dict(mode="sample", warmup=INV_NUTS_WARMUP,
@@ -2516,6 +2603,7 @@ def inverter_fits(card, freq, z, tau_gt, rp, failed):
     fits = {}
     for name, z_in, kw in runs:
         inv = Inverter()
+        misses = progcache.stats()["misses"]
         t0 = time.perf_counter()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
@@ -2547,7 +2635,13 @@ def inverter_fits(card, freq, z, tau_gt, rp, failed):
                        n_leapfrog=sd["n_leapfrog"])
             gates["ess_min"] = sd["ess_min"] > INV_GATE_ESS_MIN
             if name == "nuts_test_budget":
+                # the second same-shape NUTS fit: a cache hit, whose first
+                # draw captures nothing
                 gates["rhat_max"] = sd["rhat_max"] < INV_GATE_RHAT_MAX
+                gates["cache_hit"] = progcache.stats()["misses"] == misses
+                gates["no_capture"] = float(sd["capture_s"]) == 0.0
+                gates["first_draw_within_2x_median"] = bool(
+                    draw_s[0] <= 2.0 * np.median(draw_s))
         rec["gates"] = {k: bool(v) for k, v in gates.items()}
         out[name] = rec
         failed += [f"fit.{name}.{k}" for k, v in gates.items() if not v]
@@ -2620,7 +2714,9 @@ def drift_fleet(card, failed):
     (random_seed 1, whose median the JAX package's own figure is taken
     at; random_seed 0 ran too until the SBC and CLI phase came, 21 s on
     an NVIDIA H100 80GB HBM3 at 700 W), gated; then its serial line: one
-    Inverter.drift_map_fit of cell 0 with the same arguments, twice."""
+    Inverter.drift_map_fit of cell 0 with the same arguments, once (twice
+    until the resume phase came: 11.18 and 11.00 s, its L-BFGS graphs
+    costing ~0.2 s to capture, on an NVIDIA H100 80GB HBM3 at 700 W)."""
     import torch
     from bayes_drt_tpu_torch import Inverter, sim
     from bayes_drt_tpu_torch.parallel import drift_fit_spectra_batch
@@ -2662,7 +2758,7 @@ def drift_fleet(card, failed):
                    "jax_p50": DRIFT_JAX_P50}
     print("drift fleet: " + json.dumps(out) + f" [{card}]")
     serial = []
-    for _ in range(2):
+    for _ in range(1):
         inv = Inverter()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3374,6 +3470,442 @@ def phase_sbc_cli(card):
     return launches
 
 
+def cache_checks(card, failed):
+    """(a) The cross-call cache: cleared, then for each cached path a fit
+    of spectrum X (a miss: its captures), of Y (another same-shape
+    spectrum: a hit on other data) and of X again, which must be a counted
+    hit (no new miss, no capture) whose output equals the first X fit's
+    bit for bit. The paths: Inverter.fit NUTS md8 and SHMC at short
+    budgets, Inverter.fit MAP, Inverter.drift_map_fit (capped, no polish:
+    the L-BFGS graphs are what is cached) and fit_spectra_batch's NUTS
+    refit form (ridge seed, md8, tree_scan) on CACHE_REFIT_B spectra."""
+    import torch
+    from bayes_drt_tpu_torch import Inverter, progcache, sim
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.parallel import fit_spectra_batch
+    freq, zb = sim.make_benchmark_batch(2, circuit="ZARC",
+                                        noise_level=0.0025, seed=CACHE_SEED)
+    zx, zy = zb[0], 1.1 * zb[1]
+    dfreq, dtimes, dzc = sim.make_drift_fleet(2, seed=CACHE_SEED)
+    _, zr = sim.make_benchmark_batch(2 * CACHE_REFIT_B, circuit="ZARC",
+                                     noise_level=0.0025, seed=CACHE_SEED)
+    nw, ns = CACHE_NUTS
+
+    def inverter(kind):
+        def run(z):
+            inv = Inverter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                if kind == "nuts":
+                    inv.fit(freq, z, mode="sample", max_tree_depth=8,
+                            warmup=nw, samples=ns, ncp=True)
+                elif kind == "shmc":
+                    inv.fit(freq, z, mode="sample", sampler="shmc",
+                            warmup=CACHE_SHMC[0], samples=CACHE_SHMC[1],
+                            ncp=True)
+                elif kind == "map":
+                    inv.fit(freq, z, max_iter=CACHE_MAP_ITER, polish=False)
+                else:
+                    inv.drift_map_fit(dfreq, z, dtimes,
+                                      max_iter=CACHE_MAP_ITER, polish=False)
+            if kind in ("nuts", "shmc"):
+                sd = inv.sample_diagnostics
+                return [inv._raw_draws], sd["capture_s"], sd["draw_s"][0]
+            if kind == "map":
+                return ([inv.distribution_fits["DRT"]["coef"],
+                         np.asarray(inv._opt_result["lp__"])], 0.0,
+                        inv.timings.stages["lbfgs"])
+            return ([np.asarray(v) for _, v in sorted(
+                inv._drift_result.items())], 0.0,
+                inv.timings.stages["lbfgs"])
+        return run
+
+    def refit(z):
+        res = fit_spectra_batch(freq, z, chains=CHAINS,
+                                warmup=CACHE_REFIT[0], samples=CACHE_REFIT[1],
+                                max_tree_depth=NUTS_DEPTH,
+                                tree_scan=True, ncp=True,
+                                init_from_ridge=True, escalate=False,
+                                timing=True)
+        d = res.diagnostics
+        return ([res.coef, d["state_q"]], float(np.sum(d["capture_s"])),
+                float(d["phase_s"]["sample"]))
+
+    cases = {"inverter_nuts_md8": (inverter("nuts"), zx, zy),
+             "inverter_shmc": (inverter("shmc"), zx, zy),
+             "inverter_map": (inverter("map"), zx, zy),
+             "inverter_drift_map": (inverter("drift"), dzc[0], dzc[1]),
+             "batch_nuts_refit": (refit, zr[:CACHE_REFIT_B],
+                                  zr[CACHE_REFIT_B:])}
+    progcache.clear()
+    out = {}
+    for name, (run, x, y) in cases.items():
+        t0 = time.perf_counter()
+        x1, cap1, s1 = run(x)
+        t1 = time.perf_counter()
+        st1 = progcache.stats()
+        _, cap_y, _ = run(y)
+        st_y = progcache.stats()
+        t2 = time.perf_counter()
+        x2, cap2, s2 = run(x)
+        t3 = time.perf_counter()
+        st2 = progcache.stats()
+        bitwise = all(np.array_equal(a, b) for a, b in zip(x1, x2))
+        # Y may add a ridge QP tail of its own (a data-dependent row
+        # count), so its misses are printed, not gated
+        gates = {"hit_x": (st2["misses"] == st_y["misses"]
+                           and st2["hits"] > st_y["hits"]),
+                 "no_capture": float(cap2) == 0.0, "bitwise": bitwise}
+        out[name] = {"cold_s": t1 - t0, "hit_other_s": t2 - t1,
+                     "hit_s": t3 - t2, "capture_s_cold": float(cap1),
+                     "capture_s_other": float(cap_y),
+                     "capture_s_hit": float(cap2), "timed_part_s_cold": s1,
+                     "timed_part_s_hit": s2,
+                     "misses_other": st_y["misses"] - st1["misses"],
+                     "stats": st2,
+                     "gates": {k: bool(v) for k, v in gates.items()}}
+        failed += [f"cache.{name}.{k}" for k, v in gates.items() if not v]
+    print("cache: " + json.dumps(out) + f" [{card}]")
+
+
+def resume_checks(card, failed):
+    """(b) warm_start at full width, each fit on spectra scaled by
+    WARM_SCALE (the posterior moved a little) against the scaled truth:
+    the main path (B=1024, SHMC n32, the trajectory kernel) resumed from
+    phase 4's result at 4 x (WARM_MAIN_WARMUP + 250) with the five gates
+    and its launches; NUTS md8 (tree_scan) resumed from phase 6's 64 spectra
+    at 4 x (WARM_WARMUP + WARM_NUTS_SAMPLES), its RMSE within max(1.5x
+    phase 6's own cold figure, 5% Rp) and divergence < 0.05 (the JAX
+    package's test_warm_start_chained_refit gates); RG_WARM_B spectra of
+    the ragged fleet fitted cold by generic SHMC at 4 x RG_WARM_COLD and
+    resumed at 4 x (WARM_WARMUP + 150), gated as phase 12's ragged fits.
+    Returns the launches of the main path's resume."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    from bayes_drt_tpu_torch.parallel import (evaluate_gamma,
+                                              fit_spectra_batch,
+                                              fit_spectra_ragged)
+    if "main" not in KEEP:
+        phase_main(card)
+    if "esc" not in KEEP:
+        phase_escalation(card)
+    out = {}
+    cfg = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS,
+                     eps_quantile=EPS_QUANTILE)
+    freq, Zb, res0, tau, gt, rp = KEEP["main"]
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    print(f"warm start: the main path resumes at {CHAINS}x("
+          f"{WARM_MAIN_WARMUP}+{SAMPLES}): at {CHAINS}x({WARM_WARMUP}+"
+          f"{SAMPLES}) its median logp split-Rhat read 4.18 > "
+          f"{GATE_LOGP_RHAT} (an undersized step size after {WARM_WARMUP} "
+          "dual-averaging steps)")
+    res = fit_spectra_batch(freq, WARM_SCALE * Zb, mode="sample",
+                            chains=CHAINS, warmup=WARM_MAIN_WARMUP,
+                            samples=SAMPLES, random_seed=2, ncp=True,
+                            sampler="shmc", shmc_cfg=cfg, gamma_eval_tau=tau,
+                            dtype=np.float32, warm_start=res0, timing=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    d = res.diagnostics
+    rmse, p90, cov = gamma_figures(res, tau, WARM_SCALE * gt, WARM_SCALE * rp)
+    ess_med = float(np.median(d["min_ess"]))
+    rhat_med = float(np.median(d["logp_rhat"]))
+    gates = {"rmse": rmse < GATE_RMSE, "p90": p90 < GATE_P90,
+             "coverage": cov > GATE_COVERAGE,
+             "min_ess_med": ess_med > GATE_MIN_ESS,
+             "logp_rhat_med": rhat_med < GATE_LOGP_RHAT,
+             "launches": launches == {"quad": 2,
+                                      "traj": WARM_MAIN_WARMUP + SAMPLES},
+             "finite": bool(np.isfinite(res.coef).all())}
+    out["main_path"] = {
+        "B": B, "budget": [CHAINS, WARM_MAIN_WARMUP, SAMPLES],
+        "wall_s": wall,
+        "phase_s": d["phase_s"], "spectra_per_min": B / (wall / 60.0),
+        "traj_ms_per_draw_median": float(np.median(d["traj_ms"])),
+        "rmse_over_rp": rmse, "p90_over_rp": p90, "coverage": cov,
+        "min_ess_median": ess_med, "logp_rhat_median": rhat_med,
+        "divergence_rate": float(np.mean(d["divergence_rate"])),
+        "launches": launches,
+        "gates": {k: bool(v) for k, v in gates.items()}}
+    failed += [f"warm_main.{k}" for k, v in gates.items() if not v]
+
+    efreq, eZb, eres, etau, egt, erp, e_rmse = KEEP["esc"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_spectra_batch(efreq, WARM_SCALE * eZb, mode="sample",
+                            chains=CHAINS, warmup=WARM_WARMUP,
+                            samples=WARM_NUTS_SAMPLES,
+                            max_tree_depth=NUTS_DEPTH, tree_scan=True,
+                            random_seed=4, ncp=True, gamma_eval_tau=etau,
+                            dtype=np.float32, warm_start=eres, timing=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = res.diagnostics
+    rmse, p90, cov = gamma_figures(res, etau, WARM_SCALE * egt,
+                                   WARM_SCALE * erp)
+    div = float(np.mean(d["divergence_rate"]))
+    gates = {"rmse": rmse <= max(1.5 * e_rmse, 0.05), "divergence": div < 0.05,
+             "finite": bool(np.isfinite(res.coef).all())}
+    out["nuts_md8"] = {
+        "B": B_ESC, "budget": [CHAINS, WARM_WARMUP, WARM_NUTS_SAMPLES],
+        "wall_s": wall, "phase_s": d["phase_s"],
+        "draw_s_median": float(np.median(d["draw_s"])),
+        "capture_s": float(np.sum(d["capture_s"])),
+        "rmse_over_rp": rmse, "cold_rmse_over_rp": e_rmse,
+        "p90_over_rp": p90, "coverage": cov, "divergence_rate": div,
+        "n_leapfrog_mean": float(np.mean(d["n_leapfrog"])),
+        "gates": {k: bool(v) for k, v in gates.items()}}
+    failed += [f"warm_nuts.{k}" for k, v in gates.items() if not v]
+
+    fleet = sim.make_ragged_fleet(RG_B, RG_SEED)[:RG_WARM_B]
+    f_all = np.concatenate([f for f, _ in fleet])
+    tmin = np.log10(1 / (2 * np.pi * f_all.max())) - 1
+    tmax = np.log10(1 / (2 * np.pi * f_all.min())) + 1
+    rtau = np.logspace(tmin, tmax, int(10 * (tmax - tmin) + 1))
+    rgt = sim.reference_gamma("ZARC", rtau)
+    rrp = np.trapezoid(rgt, np.log(rtau))
+    rcfg = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS, leaf_unroll=2,
+                      draw_unroll=2, recompute_grad=True,
+                      eps_quantile=EPS_QUANTILE)
+    kw = dict(mode="sample", chains=CHAINS, samples=RG_WARM_COLD[1],
+              ncp=True, sampler="shmc", shmc_cfg=rcfg, gamma_eval_tau=rtau,
+              timing=True)
+    rec = {"B": RG_WARM_B}
+    cold = None
+    for name, fl, scale, extra in (
+            ("cold", fleet, 1.0, dict(warmup=RG_WARM_COLD[0],
+                                      random_seed=1)),
+            ("warm", [(f, WARM_SCALE * z) for f, z in fleet], WARM_SCALE,
+             dict(warmup=WARM_WARMUP, random_seed=2))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_spectra_ragged(fl, warm_start=cold, **kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g = evaluate_gamma(res, rtau)
+        truth = scale * rgt
+        per = np.sqrt(np.mean((g - truth[None, :]) ** 2, axis=1))
+        rmse = float(np.sqrt(np.mean((g.mean(axis=0) - truth) ** 2)))
+        rmse, p90 = rmse / (scale * rrp), float(
+            np.percentile(per, 90)) / (scale * rrp)
+        gates = {"finite": bool(np.isfinite(res.coef).all()),
+                 "rmse": rmse < GATE_RMSE, "p90": p90 < GATE_P90}
+        rec[name] = {"wall_s": wall, "phase_s": res.diagnostics["phase_s"],
+                     "budget": [CHAINS, extra["warmup"], RG_WARM_COLD[1]],
+                     "rmse_over_rp": rmse, "p90_over_rp": p90,
+                     "capture_s": [float(x) for x in
+                                   res.diagnostics["capture_s"]],
+                     "gates": {k: bool(v) for k, v in gates.items()}}
+        failed += [f"warm_ragged_{name}.{k}" for k, v in gates.items()
+                   if not v]
+        cold = res
+    out["ragged"] = rec
+    print("warm start: " + json.dumps(out) + f" [{card}]")
+    return launches
+
+
+def pooled_check(card, failed):
+    """(c) precondition='pooled': NUTS md8 on POOL_B of the main path's
+    spectra at warmup POOL_WARMUP (a POOL_PILOT pilot) and POOL_SAMPLES
+    draws, centered as the JAX package's test, gated on its bars (RMSE of
+    the batch-mean gamma < 6% Rp, divergence < 0.05); the five main-path
+    figures printed. Returns the pooled metric (float64) for (e)."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.ops.matrices import get_tau_basis
+    from bayes_drt_tpu_torch.parallel import fit_spectra_batch
+    freq, Zb = sim.make_benchmark_batch(B, circuit="ZARC",
+                                        noise_level=0.0025, seed=0)
+    Zb = Zb[:POOL_B]
+    tau = get_tau_basis(np.sort(freq)[::-1])
+    gt = sim.reference_gamma("ZARC", tau)
+    rp = np.trapezoid(gt, np.log(tau))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_spectra_batch(freq, Zb, mode="sample", chains=CHAINS,
+                            warmup=POOL_WARMUP, samples=POOL_SAMPLES,
+                            max_tree_depth=NUTS_DEPTH, random_seed=1,
+                            precondition="pooled",
+                            pilot_warmup=POOL_PILOT[0],
+                            pilot_samples=POOL_PILOT[1], escalate=False,
+                            gamma_eval_tau=tau, dtype=np.float32,
+                            timing=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = res.diagnostics
+    rmse, p90, cov = gamma_figures(res, tau, gt, rp)
+    div = float(np.mean(d["divergence_rate"]))
+    m = d["state_inv_mass"]
+    gates = {"rmse": rmse < POOL_GATE_RMSE, "divergence": div < POOL_GATE_DIV,
+             "finite": bool(np.isfinite(res.coef).all()),
+             "one_dense_metric": bool(m.ndim == 4 and np.array_equal(
+                 m[0, 0], m[-1, -1]))}
+    print("pooled: " + json.dumps({
+        "B": POOL_B, "budget": [CHAINS, POOL_WARMUP, POOL_SAMPLES],
+        "pilot": list(POOL_PILOT), "max_tree_depth": NUTS_DEPTH,
+        "wall_s": wall, "phase_s": d["phase_s"],
+        "draw_s_median": float(np.median(d["draw_s"])),
+        "rmse_over_rp": rmse, "p90_over_rp": p90, "coverage": cov,
+        "min_ess_median": float(np.median(d["min_ess"])),
+        "logp_rhat_median": float(np.median(d["logp_rhat"])),
+        "divergence_rate": div,
+        "n_leapfrog_mean": float(np.mean(d["n_leapfrog"])),
+        "gates": {k: bool(v) for k, v in gates.items()}}) + f" [{card}]")
+    failed += [f"pooled.{k}" for k, v in gates.items() if not v]
+
+
+def dense_checks(card, failed):
+    """(d) The JAX package's dense-metric Gaussian tests as DENSE_ROWS rows
+    of CUDA-graph trees (float64): dense_mass on d=6 (relative Frobenius
+    error of the pooled draws' covariance < 0.3, mean leapfrogs < 0.7x the
+    diagonal metric's on the same rows); a fixed dense metric, the exact
+    covariance, on d=12 (error < 0.3, mean leapfrogs < 20) and its
+    diagonal as a fixed diagonal metric (divergence < 0.02). Then the
+    device memory of dense_mass's per-row metric at the main path's width
+    (R=4096, D=211, float32, two md4 draws from its final states)."""
+    import torch
+    from bayes_drt_tpu_torch.infer import nuts
+    dev = "cuda"
+
+    def gaussian(d, seed):
+        rng = np.random.default_rng(seed)
+        A = rng.standard_normal((d, d))
+        cov = A @ A.T + 0.05 * np.eye(d)
+        P = torch.as_tensor(np.linalg.inv(cov), device=dev)
+
+        def vg(q):
+            g = -(q @ P.T)
+            return 0.5 * (q * g).sum(-1), g
+
+        return vg, cov
+
+    def rel_f(draws, cov):
+        est = np.cov(draws.reshape(-1, draws.shape[-1]).cpu().numpy().T)
+        return float(np.linalg.norm(est - cov) / np.linalg.norm(cov))
+
+    out = {}
+    vg, cov = gaussian(6, 11)
+    q0 = torch.zeros((DENSE_ROWS, 6), dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    dd, di = nuts.sample_nuts(vg, q0, 150, 75, nuts.NUTSConfig(
+        max_depth=DENSE_DEPTH, dense_mass=True),
+        generator=torch.Generator(dev).manual_seed(4))
+    _, gi = nuts.sample_nuts(vg, q0, 150, 75,
+                             nuts.NUTSConfig(max_depth=DENSE_DEPTH),
+                             generator=torch.Generator(dev).manual_seed(4))
+    n_dense = float(di["n_leapfrog"].double().mean())
+    n_diag = float(gi["n_leapfrog"].double().mean())
+    err = rel_f(dd, cov)
+    out["dense_mass_d6"] = {"rel_frobenius": err, "n_leapfrog_dense": n_dense,
+                            "n_leapfrog_diag": n_diag,
+                            "n_leapfrog_max": [int(di["n_leapfrog"].max()),
+                                               int(gi["n_leapfrog"].max())],
+                            "seconds": time.perf_counter() - t0}
+    gates = {"dense_mass.cov": err < 0.3,
+             "dense_mass.leaves": n_dense < 0.7 * n_diag}
+    vg, cov = gaussian(12, 5)
+    chol = np.linalg.cholesky(cov)
+    cfg = nuts.NUTSConfig(max_depth=DENSE_DEPTH, adapt_mass=False)
+    q0 = torch.zeros((DENSE_ROWS, 12), dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    fd, fi = nuts.sample_nuts(vg, q0, 100, 75, cfg,
+                              generator=torch.Generator(dev).manual_seed(9),
+                              metric=(torch.as_tensor(cov, device=dev),
+                                      torch.as_tensor(chol, device=dev)))
+    _, vi = nuts.sample_nuts(vg, q0, 100, 50, cfg,
+                             generator=torch.Generator(dev).manual_seed(9),
+                             metric=torch.as_tensor(np.diag(cov).copy(),
+                                                    device=dev))
+    err = rel_f(fd, cov)
+    n_fixed = float(fi["n_leapfrog"].double().mean())
+    div = float(vi["diverging"].double().mean())
+    out["fixed_dense_d12"] = {"rel_frobenius": err, "n_leapfrog": n_fixed,
+                              "n_leapfrog_max": [int(fi["n_leapfrog"].max()),
+                                                 int(vi["n_leapfrog"].max())],
+                              "diag_divergence": div,
+                              "seconds": time.perf_counter() - t0}
+    gates.update({"fixed.cov": err < 0.3, "fixed.leaves": n_fixed < 20,
+                  "fixed.diag_divergence": div < 0.02})
+    # the per-row dense metric's memory at the main path's width
+    vg, q, lp, g, eps, _ = nuts_rows(torch.float32, KEEP["state"], B * CHAINS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, ri = nuts.sample_nuts(vg, q, 1, 1, nuts.NUTSConfig(
+        max_depth=4, dense_mass=True), generator=torch.Generator(
+        dev).manual_seed(0))
+    torch.cuda.synchronize()
+    out["dense_rows_R4096_D211"] = {
+        "peak_bytes_over_base": int(torch.cuda.max_memory_allocated() - base),
+        "one_metric_bytes": int(ri["inv_mass"].numel() * 4),
+        "seconds": time.perf_counter() - t0}
+    del ri
+    out["gates"] = {k: bool(v) for k, v in gates.items()}
+    print("dense metrics: " + json.dumps(out) + f" [{card}]")
+    failed += [f"dense.{k}" for k, v in gates.items() if not v]
+
+
+def dense_parity(card, failed):
+    """(e) float64 card-vs-CPU parity of one NUTS transition with a
+    shared dense metric at D=211 on DENSE_PARITY_ROWS of the main path's
+    final states (md8, static tree; on the card as CUDA graphs, bit for
+    bit its eager form there), phase 9's row criteria. The metric: the
+    main path's final states pooled within each spectrum (batch.
+    pooled_metric over its 1024 spectra of 4 chains)."""
+    import torch
+    from bayes_drt_tpu_torch.parallel import batch
+    sq = np.asarray(KEEP["state"]["state_q"], np.float64)
+    m_inv, chol = batch.pooled_metric(sq[:, None])
+    R = DENSE_PARITY_ROWS
+    bad = nuts_transition_parity(
+        card, "parity dense nuts", R, NUTS_DEPTH, 8,
+        lambda dev: nuts_rows(torch.float64, KEEP["state"], R, dev),
+        metric=lambda dev: tuple(torch.as_tensor(a, device=dev)[None]
+                                 for a in (m_inv, chol)))
+    if bad > 0.001 * R:
+        failed.append(f"dense_parity.{bad}_rows")
+
+
+def phase_resume(card):
+    """Phase 16: the cross-call cache (a), warm starts at full width (b),
+    the pooled preconditioner (c), dense metrics (d) and their float64
+    card-vs-CPU parity (e). Returns the kernels' launches on (a) to (c)'s
+    driven paths."""
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    failed = []
+    seconds = {}
+    total = {"quad": 0, "traj": 0}
+    # the cache check clears the cache, so it runs last: the NUTS resume
+    # first replays phase 6's refit graphs
+    for name, fn in (("warm_start", resume_checks), ("pooled", pooled_check),
+                     ("cache", cache_checks)):
+        drt_quad.launches = 0
+        traj_fused.launches = 0
+        t0 = time.perf_counter()
+        fn(card, failed)
+        seconds[name] = time.perf_counter() - t0
+        total["quad"] += drt_quad.launches
+        total["traj"] += traj_fused.launches
+    for name, fn in (("dense", dense_checks), ("dense_parity", dense_parity)):
+        t0 = time.perf_counter()
+        fn(card, failed)
+        seconds[name] = time.perf_counter() - t0
+    print("resume phase: " + json.dumps({"seconds": seconds,
+                                         "launches": total}) + f" [{card}]")
+    if failed:
+        raise AssertionError(f"resume phase failed: {failed}")
+    return total
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -3385,9 +3917,11 @@ def main(argv):
     seconds = {}
 
     def timed(name, fn, *args):
+        from bayes_drt_tpu_torch import progcache
         t0 = time.perf_counter()
         out = fn(card, *args)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"progcache after {name}: {json.dumps(progcache.stats())}")
         return out
 
     t0 = time.perf_counter()
@@ -3416,8 +3950,9 @@ def main(argv):
     inv = timed("13 inverter", phase_inverter)
     dr = timed("14 drift", phase_drift)
     sc = timed("15 sbc cli", phase_sbc_cli)
+    rs = timed("16 resume", phase_resume)
     launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] + sp[k] + gr[k]
-                + inv[k] + dr[k] + sc[k] for k in launches}
+                + inv[k] + dr[k] + sc[k] + rs[k] for k in launches}
     print(f"phase seconds: {json.dumps(seconds)} [{card}]")
     kernels = [
         dict(name="drt_quad", route="cuda",

@@ -154,10 +154,18 @@ def test_unported_options_raise():
         np.testing.assert_allclose(
             md[:, :, 6:].mean(1), res.diagnostics["gamma_eval_mean"],
             rtol=1e-5, atol=1e-6 * np.abs(md[:, :, 6:]).max())
-    for kw in (dict(sampler="chees"), dict(warm_start=object()),
-               dict(precondition="pooled")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fit_spectra_batch(freq, Zb, device="cpu", **{**KW, **kw})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        fit_spectra_batch(freq, Zb, device="cpu",
+                          **{**KW, "sampler": "chees"})
+    # warm_start and precondition (ported with item 12's metric family)
+    # keep the JAX package's guards; a result carrying no sampler state
+    # and the pooled metric on SHMC raise them
+    with pytest.raises(ValueError, match="missing diagnostics"):
+        fit_spectra_batch(freq, Zb, device="cpu", **KW,
+                          warm_start=got._replace(diagnostics={}))
+    with pytest.raises(ValueError, match="builds a dense metric"):
+        fit_spectra_batch(freq, Zb, device="cpu", precondition="pooled",
+                          **KW)
     with pytest.raises(ValueError, match="Unknown sampler"):
         fit_spectra_batch(freq, Zb, device="cpu",
                           **{**KW, "sampler": "hmc"})

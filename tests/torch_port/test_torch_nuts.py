@@ -207,13 +207,20 @@ def test_correlated_gaussian_moments():
 
 
 def test_unported_nuts_options_raise():
+    """fused_draws still raises, naming item 12; dense_mass and metric=
+    (ported with the metric family) run."""
     vg, _, _ = _gaussian(3, 0)
     q0 = torch.zeros((2, 3), dtype=torch.float64)
     gen = torch.Generator().manual_seed(0)
-    for cfg in (nuts.NUTSConfig(dense_mass=True),
-                nuts.NUTSConfig(fused_draws=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            nuts.sample_nuts(vg, q0, 5, 5, cfg, generator=gen)
     with pytest.raises(NotImplementedError, match="item 12"):
-        nuts.sample_nuts(vg, q0, 5, 5, generator=gen,
-                         metric=torch.ones(3, dtype=torch.float64))
+        nuts.sample_nuts(vg, q0, 5, 5, nuts.NUTSConfig(fused_draws=True),
+                         generator=gen)
+    draws, info = nuts.sample_nuts(vg, q0, 5, 5,
+                                   nuts.NUTSConfig(dense_mass=True),
+                                   generator=gen)
+    assert info["inv_mass"].shape == (2, 3, 3)
+    assert torch.isfinite(draws).all()
+    draws, info = nuts.sample_nuts(vg, q0, 5, 5, generator=gen,
+                                   metric=torch.ones(3, dtype=torch.float64))
+    assert info["inv_mass"].shape == (2, 3)
+    assert torch.isfinite(draws).all()

@@ -263,10 +263,14 @@ def test_ragged_sample_outputs_match_jax(sampler):
 
 def test_ragged_raises():
     spectra = _fleet()
-    for kw in (dict(sampler="chees"), dict(warm_start=object()),
-               dict(mesh=object())):
+    for kw in (dict(sampler="chees"), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="item 12"):
             batch.fit_spectra_ragged(spectra, device="cpu", **kw)
+    # warm_start is ported (item 12's metric family): a result without
+    # sampler state fails its guard
+    with pytest.raises(ValueError, match="missing diagnostics"):
+        batch.fit_spectra_ragged(spectra, device="cpu", warm_start=batch.
+                                 BatchFitResult(*([None] * 8), {}))
     with pytest.raises(ValueError, match="Invalid mode"):
         batch.fit_spectra_ragged(spectra, mode="map", device="cpu")
     with pytest.raises(ValueError, match="Unknown sampler"):
