@@ -5,17 +5,15 @@ Host code (numpy) orchestrates; the numerics run in torch on the
 Inverter's device: matrix construction (ops/, a DRT's A through the
 hand-written quadrature kernel on a CUDA device), the box-QP ridge
 (infer/ridge.py), MAP by L-BFGS and the Newton polish (infer/map.py) and
-NUTS or SHMC sampling (infer/nuts.py, infer/chees.py), each replayed as
-CUDA graphs on a CUDA device. The fit state (coefficients, matrices,
-error structure, the Stan-style results and diagnostics) holds numpy
-arrays and Python scalars only, so ``save_fit_data`` of either package
-loads into the other.
+NUTS, SHMC or ChEES sampling (infer/nuts.py, infer/chees.py), each
+replayed as CUDA graphs on a CUDA device. The fit state (coefficients,
+matrices, error structure, the Stan-style results and diagnostics) holds
+numpy arrays and Python scalars only, so ``save_fit_data`` of either
+package loads into the other.
 
 Drift fits (models/drift.py) and HN peak fits (peaks.py, the LM of
 infer/lsq.py) run on the Inverter's device too. The plotting wrappers
-draw through viz/plotting.py (matplotlib, imported when called). Not
-ported yet (it raises, naming its ROADMAP item): ``sampler='chees'``
-(item 12).
+draw through viz/plotting.py (matplotlib, imported when called).
 """
 
 from __future__ import annotations
@@ -30,7 +28,7 @@ from . import peaks
 from ._numerics import resolve_device, resolve_dtype
 from .convert import inverter_state_from_numpy
 from .infer import diagnostics as mcmc_diagnostics
-from .infer.chees import SHMCConfig, sample_shmc
+from .infer.chees import ChEESConfig, SHMCConfig, sample_chees, sample_shmc
 from .infer.map import MapResult, newton_polish, run_lbfgs, run_lbfgs_restarts
 from .infer.nuts import NUTSConfig, sample_nuts
 from .infer.ridge import (HyperLambdaConfig, RidgeData, run_hyper_lambda,
@@ -783,8 +781,9 @@ class Inverter:
         iterations, then the damped Newton polish (``polish``; in float32
         it never certifies and runs its 100 iterations). Sampling runs
         ``chains`` chains of ``sampler`` 'nuts' (one chain per row, each
-        with its own adaptation) or 'shmc' (the chains of the spectrum
-        pool their adaptation; ``shmc_cfg``), ``ncp`` sampling the
+        with its own adaptation), 'shmc' or 'chees' (the chains of the
+        spectrum pool their adaptation; ``shmc_cfg``, or ``chees_cfg``,
+        by default ``ChEESConfig(delta=adapt_delta)``), ``ncp`` sampling the
         coefficients non-centered; ``random_seed`` seeds a torch.Generator
         on the device. ``outliers='auto'`` picks the outlier error model
         when a ridge fit flags outliers. ``fitY`` / ``SA`` / ``SASY`` are
@@ -794,8 +793,7 @@ class Inverter:
         after assembly; ``log_density_fn`` replaces the log density by a
         torch function ``(cfg, data, params, jacobian) -> logp`` of the
         port's signature (broadcasting over leading parameter rows), whose
-        gradient autograd supplies. Not ported: ``sampler='chees'`` (item
-        12)."""
+        gradient autograd supplies."""
         if ridge_kw is None:
             ridge_kw = {}
         self.timings = StageTimer(self._device)
@@ -858,16 +856,12 @@ class Inverter:
             self._fit_map(cfg, data, gen, iv, log_density_fn, n_restarts,
                           max_iter, polish, names)
         elif mode == "sample":
-            if sampler == "chees":
-                raise NotImplementedError(
-                    "sampler='chees' is not ported yet (ROADMAP Queue 1 "
-                    "item 12)")
-            if sampler not in ("nuts", "shmc"):
+            if sampler not in ("nuts", "chees", "shmc"):
                 raise ValueError(f"Unknown sampler {sampler!r}; options are "
                                  "'nuts', 'chees', 'shmc'")
             self._fit_sample(cfg, data, gen, iv, log_density_fn, sampler,
                              chains, warmup, samples, max_tree_depth,
-                             adapt_delta, shmc_cfg, names)
+                             adapt_delta, shmc_cfg, chees_cfg, names)
         else:
             raise ValueError(f"Invalid mode {mode!r}. Options are 'optimize', "
                              "'sample'")
@@ -958,30 +952,34 @@ class Inverter:
 
     def _fit_sample(self, cfg, data, gen, iv, density, sampler, chains,
                     warmup, samples, max_tree_depth, adapt_delta, shmc_cfg,
-                    names):
-        """NUTS (one chain per row) or SHMC (the chains pooled as one
-        spectrum), then the Stan-style per-draw results and the host
+                    chees_cfg, names):
+        """NUTS (one chain per row), SHMC or ChEES (the chains pooled as
+        one spectrum), then the Stan-style per-draw results and the host
         diagnostics. The value and gradient over the chains' rows (the
-        hand-written form for the single series DRT, autograd of
-        ``density`` otherwise) and the sampler's graphs are a progcache
-        runner, so a later same-shape fit captures nothing."""
+        hand-written form for the single series DRT under NUTS and SHMC,
+        autograd of ``density`` otherwise) and the sampler's graphs are a
+        progcache runner, so a later same-shape fit captures nothing."""
         if sampler == "shmc":
             run_cfg = (shmc_cfg if shmc_cfg is not None
                        else SHMCConfig(delta=adapt_delta))
+        elif sampler == "chees":
+            run_cfg = (chees_cfg if chees_cfg is not None
+                       else ChEESConfig(delta=adapt_delta))
         else:
             run_cfg = NUTSConfig(max_depth=max_tree_depth, delta=adapt_delta)
         entry = _sampler_entry("Inverter.fit", cfg, data,
                                data.target.expand(chains, -1).contiguous(),
-                               run_cfg, density=density)
+                               run_cfg, density=density,
+                               budget=("chees", chains, warmup, samples))
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(chains,),
                                            init_values=iv)).contiguous()
         with self.timings.stage("sample"):
-            if sampler == "shmc":
-                draws, info = sample_shmc(entry.fn, q0, warmup, samples,
-                                          run_cfg, chains, generator=gen,
-                                          time_draws=True,
-                                          graphs=entry.graphs)
+            if sampler in ("shmc", "chees"):
+                run = sample_chees if sampler == "chees" else sample_shmc
+                draws, info = run(entry.fn, q0, warmup, samples, run_cfg,
+                                  chains, generator=gen, time_draws=True,
+                                  graphs=entry.graphs)
                 draws = draws[0]
                 info = {k: (v[0] if isinstance(v, torch.Tensor) else v)
                         for k, v in info.items()}

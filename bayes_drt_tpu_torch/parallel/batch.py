@@ -30,8 +30,9 @@ hand-written quadrature kernel (ops/quad.py).
 Sample-mode fits resume from an earlier fit's sampler state
 (``warm_start``) or sample with one dense metric pooled from a pilot over
 the batch (``precondition='pooled'``). Every captured sampler and solver
-is a progcache runner kept across calls. Not ported yet: ChEES and
-meshes.
+is a progcache runner kept across calls. ``sampler='chees'`` runs
+ChEES-HMC (infer/chees.py:sample_chees) through the autograd value and
+gradient in every route. Not ported yet: meshes.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import numpy as np
 import torch
 
 from .._numerics import resolve_device, resolve_dtype
-from ..infer.chees import SHMCConfig, sample_shmc
+from ..infer.chees import ChEESConfig, SHMCConfig, sample_chees, sample_shmc
 from ..infer.diagnostics import ess_bulk_jnp, ess_jnp, rhat_rank_jnp
 from ..infer.map import newton_polish, run_lbfgs, run_lbfgs_restarts
 from ..infer.nuts import NUTSConfig, sample_nuts
@@ -431,14 +432,21 @@ def _drift_loss(tag, cfg, data, key=()):
 
 
 def _sampler_entry(tag, cfg, data, tgt_rows, run_cfg, form="diag",
-                   density=None):
+                   density=None, budget=()):
     """The sampler's value and gradient as a progcache runner, keyed on
     what shapes the sampler's graphs: NUTS's depth, tree form, energy
     bound and the metric's form; SHMC's leapfrog counts,
-    ``recompute_grad`` and energy bound."""
+    ``recompute_grad`` and energy bound. ChEES takes the autograd value
+    and gradient on every model (as the JAX package's sample_chees takes
+    jax.value_and_grad) and is keyed as the JAX package keys its program:
+    ``budget`` is (tag, chains, warmup, samples), tag 'chees' or
+    'warm-chees', beside the whole configuration."""
     if isinstance(run_cfg, NUTSConfig):
         key = ("nuts", run_cfg.max_depth, bool(run_cfg.tree_scan),
                float(run_cfg.max_energy_error), form)
+    elif isinstance(run_cfg, ChEESConfig):
+        key = (budget[0], run_cfg) + tuple(budget[1:])
+        density = log_density if density is None else density
     else:
         key = ("shmc", run_cfg.n_steps, run_cfg.warm_steps,
                bool(run_cfg.recompute_grad), float(run_cfg.max_energy_error))
@@ -485,11 +493,26 @@ def _warm_state(warm_start, cfg, b_real, b, chains, ragged=False):
     return wq, wm, weps
 
 
+def _warm_traj_time(warm_start, b, dtype, device, ragged=False):
+    """A ChEES warm start's trajectory times (b,), padded like the batch,
+    after the JAX package's guard."""
+    ws = warm_start.diagnostics
+    b_prev = np.asarray(ws["state_q"]).shape[0]
+    wtt = np.asarray(ws.get("state_traj_time", np.full(b_prev, np.nan)),
+                     float)
+    if np.any(np.isnan(wtt)):
+        raise ValueError(
+            "warm_start for sampler='chees' needs "
+            "diagnostics['state_traj_time']"
+            + ("" if ragged else " (a previous chees fit)"))
+    return torch.as_tensor(_pad_rows(wtt, b), device=device).to(dtype)
+
+
 def _warm_run(sampler, run_cfg, warm, dtype, device):
     """(q0 rows, run_cfg with the metric held fixed, metric,
     init_step_size) of a warm start: NUTS resumes every chain with its
-    own metric and step size; SHMC every spectrum with its chains' mean
-    metric and mean step size, as the JAX package does."""
+    own metric and step size; SHMC and ChEES every spectrum with its
+    chains' mean metric and mean step size, as the JAX package does."""
     wq, wm, weps = warm
     b, chains, dim = wq.shape
 
@@ -503,9 +526,9 @@ def _warm_run(sampler, run_cfg, warm, dtype, device):
         return (q0, run_cfg, t(wm.reshape((b * chains,) + wm.shape[2:])),
                 t(weps.reshape(-1)))
     if wm.ndim == 4:
-        raise ValueError("warm_start carries a dense metric; sampler='shmc' "
-                         "resumes from diagonal metrics only (use "
-                         "sampler='nuts')")
+        raise ValueError(f"warm_start carries a dense metric; "
+                         f"sampler={sampler!r} resumes from diagonal metrics "
+                         "only (use sampler='nuts')")
     return q0, run_cfg, t(wm.mean(axis=1)), t(weps.mean(axis=1))
 
 
@@ -656,7 +679,8 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                       polish: bool = True,
                       init_from_ridge: bool = False,
                       ridge_kw: Optional[dict] = None,
-                      random_seed: int = 0, max_tree_depth: int = 10,
+                      random_seed: int = 0, mesh=None,
+                      max_tree_depth: int = 10,
                       dtype=None, distributions=None,
                       precondition: Optional[str] = None,
                       pilot_warmup: int = 50, pilot_samples: int = 25,
@@ -665,7 +689,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                       scan_unroll: int = 1, basis: str = "gaussian",
                       gamma_eval_tau=None, monitor_thin: int = 0,
                       z_scale=None, sigma_min: float = 0.002,
-                      sampler: str = "nuts", shmc_cfg=None,
+                      sampler: str = "nuts", chees_cfg=None, shmc_cfg=None,
                       warm_start=None, quality: Optional[str] = None,
                       escalate: Optional[bool] = None,
                       escalate_gate: Optional[dict] = None,
@@ -708,7 +732,12 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     ``shmc_cfg``: the flat-chain sampler, one launch of the hand-written
     trajectory kernel per draw, for the single series DRT without
     outliers; the generic sampler (autograd, each draw's trajectory one
-    CUDA graph replay on a CUDA device) for every other model. Runs on CUDA unless
+    CUDA graph replay on a CUDA device) for every other model.
+    ``sampler='chees'`` runs ChEES-HMC with ``chees_cfg`` (default
+    ``ChEESConfig()``) on every model through the autograd value and
+    gradient, a spectrum's chains sharing one metric and trajectory time
+    (``diagnostics['state_traj_time']``, (B,)), each draw's leaves
+    replayed as CUDA graph blocks on a CUDA device. Runs on CUDA unless
     ``device`` says otherwise, float32 unless ``dtype`` says otherwise;
     random numbers come from a torch.Generator seeded with
     ``random_seed``. The single series DRT without outliers takes the
@@ -737,7 +766,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     arguments), and splice the refit into the result;
     ``diagnostics['escalated']`` records the mask. The default None is on
     for ``sampler='shmc'`` and for single-distribution NUTS without
-    ``init_from_ridge``.
+    ``init_from_ridge``, off for ChEES.
 
     ``timing`` records host-clock spans closed by a device synchronize
     (``diagnostics['phase_s']``: setup, ridge when seeded, then sample and
@@ -761,8 +790,10 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     from its last position with its own metric held fixed and its own
     step size seeding the search (the step size re-adapts over
     ``warmup``); SHMC resumes every spectrum with its chains' mean metric
-    and mean step size. A chained refit of slowly moving spectra needs a
-    fraction of a cold fit's warmup; escalation is off by default.
+    and mean step size, ChEES also with its trajectory time
+    (``state_traj_time``, which a ChEES result carries). A chained refit
+    of slowly moving spectra needs a fraction of a cold fit's warmup;
+    escalation is off by default.
 
     ``precondition='pooled'`` (NUTS): a diagonal-metric pilot of
     ``pilot_warmup`` + ``pilot_samples`` draws over the batch, its draws
@@ -779,7 +810,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     ``basis`` names the RBF family (construct_L, like the JAX package's,
     builds the penalty's orders 1 and 2 for 'gaussian' only, so other
     bases raise its ValueError). Not ported (it raises, naming its
-    ROADMAP item): ChEES (item 12).
+    ROADMAP item): ``mesh`` (item 12).
     """
     if quality is not None:
         if quality not in QUALITY_PRESETS:
@@ -801,6 +832,9 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if mode not in ("sample", "optimize"):
         raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
                          "'optimize'")
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
+                                  "item 12)")
     dists = _normalize_distributions(distributions)
     n_dists = len(dists)
     single_parallel = (n_dists == 1 and next(iter(dists.values()))[
@@ -825,10 +859,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                         dev, random_seed, init_from_ridge, ridge_kw,
                         n_restarts, max_iter, polish, mark,
                         phases if timing else None)
-    if sampler == "chees":
-        raise NotImplementedError("sampler='chees' is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
-    if sampler not in ("nuts", "shmc"):
+    if sampler not in ("nuts", "chees", "shmc"):
         raise ValueError(f"Unknown sampler {sampler!r}; options are "
                          "'nuts', 'chees', 'shmc'")
     if warm_start is not None and precondition is not None:
@@ -838,7 +869,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         if precondition != "pooled":
             raise ValueError(f"Unknown precondition {precondition!r}; the "
                              "option is 'pooled'")
-        if sampler == "shmc":
+        if sampler in ("chees", "shmc"):
             raise ValueError(
                 "precondition='pooled' builds a dense metric; "
                 "sample_chees/sample_shmc support diagonal metrics only "
@@ -861,12 +892,14 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         esc_kw["init_from_ridge"] = True
     esc_kw.update(escalate_kw or {})
     if sampler == "shmc":
-        sh_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
+        sh_cfg = run_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
         sh_cfg.validate()
+    elif sampler == "chees":
+        run_cfg = chees_cfg if chees_cfg is not None else ChEESConfig()
     else:
-        nuts_cfg = NUTSConfig(max_depth=max_tree_depth, unroll=unroll,
-                              flat_tree=flat_tree, tree_scan=tree_scan,
-                              scan_unroll=scan_unroll)
+        nuts_cfg = run_cfg = NUTSConfig(
+            max_depth=max_tree_depth, unroll=unroll, flat_tree=flat_tree,
+            tree_scan=tree_scan, scan_unroll=scan_unroll)
         nuts_cfg.validate()
     frequencies, tau, eps, cfg, data, dists_norm = _build_shared(
         frequencies, dtype=dt, ncp=ncp, device=dev, **setup_kw)
@@ -881,7 +914,6 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     gen = torch.Generator(device=dev).manual_seed(int(random_seed))
     tgt_rows = targets.repeat_interleave(chains, dim=0).contiguous()
     flat_args = None
-    run_cfg = sh_cfg if sampler == "shmc" else nuts_cfg
     if sampler == "shmc" and flat:
         flat_args = (flat_spec_for(cfg, data), flat_shared_for(cfg, data, dt),
                      tgt_rows)
@@ -900,9 +932,12 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                                        init_values=init_values))
     q0 = q0.reshape(b * chains, D).contiguous()
     metric, init_eps, form, run_warmup = None, 1.0, "diag", warmup
+    init_traj = None
     if warm is not None:
         q0, run_cfg, metric, init_eps = _warm_run(sampler, run_cfg, warm, dt,
                                                   dev)
+        if sampler == "chees":
+            init_traj = _warm_traj_time(warm_start, b, dt, dev)
         if metric.ndim == 3:
             form = "dense_rows"
     elif precondition == "pooled":
@@ -919,14 +954,18 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         run_cfg = nuts_cfg._replace(adapt_mass=False)
         form = "dense"
         mark("pilot")
+    budget = ("warm-chees" if warm is not None else "chees", chains,
+              run_warmup, samples)
     entry = (None if flat_args is not None else _sampler_entry(
-        "fit_spectra_batch", cfg, data, tgt_rows, run_cfg, form))
+        "fit_spectra_batch", cfg, data, tgt_rows, run_cfg, form,
+        budget=budget))
     draws, info = _run_sampler(sampler, entry, q0, chains, run_warmup,
                                samples, run_cfg, gen, timing, flat_args,
-                               metric, init_eps)
+                               metric, init_eps, init_traj)
     mark("sample")
     out = _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
                             phi_mon, phi_eval, monitor_thin)
+    _add_traj_time(out, info, b_real)
     mark("summary")
     result = _sampled_result(cfg, out, z_scales[:b_real], dists_norm, tau,
                              eps, basis, n_eval=phi_eval.shape[0])
@@ -985,8 +1024,9 @@ def _coef_scale(cfg, i, z_scales):
     return z_scales[:, None]
 
 
-# per-draw timing records of the samplers, kept out of the summary
-_TIMING_KEYS = ("traj_ms", "draw_s", "capture_s")
+# per-draw timing records of the samplers (and ChEES's per-draw largest
+# leapfrog count and graph replays), kept out of the summary
+_TIMING_KEYS = ("traj_ms", "draw_s", "capture_s", "leaf_max", "replays")
 
 
 def _phi_mats(tau, eps, gamma_eval_tau, dtype, device):
@@ -1007,19 +1047,29 @@ def _phi_mats(tau, eps, gamma_eval_tau, dtype, device):
 
 
 def _run_sampler(sampler, entry, q0, chains, warmup, samples, cfg, gen,
-                 timing, flat_args=None, metric=None, init_step_size=1.0):
+                 timing, flat_args=None, metric=None, init_step_size=1.0,
+                 init_traj_time=None):
     """Sample the (b*chains, D) rows q0: NUTS (``cfg`` a NUTSConfig), the
-    flat-chain SHMC sampler (``flat_args`` = (spec, shared, targets)) or
-    the generic SHMC sampler on the runner ``entry`` (a progcache
+    flat-chain SHMC sampler (``flat_args`` = (spec, shared, targets)), the
+    generic SHMC sampler or ChEES on the runner ``entry`` (a progcache
     ``Bound``: its value and gradient and its graphs' slot). ``metric``
     and ``init_step_size`` are per chain for NUTS ((R, D) or (R, D, D),
     (R,), or a shared dense (m_inv, chol) pair), per spectrum for SHMC
-    ((b, D), (b,)). Returns draws (b, C, S, D) and the info dict with a
-    leading b axis, the SHMC samplers' per-spectrum metric broadcast to
-    every chain and a dense NUTS metric as (b, C, D, D)."""
+    and ChEES ((b, D), (b,)), as ChEES's ``init_traj_time`` (b,).
+    Returns draws (b, C, S, D) and the info dict with a leading b axis,
+    the SHMC and ChEES samplers' per-spectrum metric broadcast to every
+    chain and a dense NUTS metric as (b, C, D, D)."""
     b = q0.shape[0] // chains
-    if sampler == "shmc":
-        if flat_args is not None:
+    if sampler in ("shmc", "chees"):
+        if sampler == "chees":
+            draws, info = sample_chees(entry.fn, q0, warmup, samples, cfg,
+                                       chains, generator=gen,
+                                       init_step_size=init_step_size,
+                                       metric=metric,
+                                       init_traj_time=init_traj_time,
+                                       time_draws=timing,
+                                       graphs=entry.graphs)
+        elif flat_args is not None:
             spec, shared, tgt_rows = flat_args
             draws, info = sample_shmc_flat(
                 spec, shared, tgt_rows, q0, warmup, samples, cfg, chains,
@@ -1054,6 +1104,13 @@ def _run_sampler(sampler, entry, q0, chains, warmup, samples, cfg, gen,
         info["draw_s"] = raw["draw_s"]
         info["capture_s"] = raw["capture_s"]
     return _per_spectrum(draws, b, chains), info
+
+
+def _add_traj_time(out, info, b_real):
+    """A ChEES fit's adapted trajectory times, the state a warm start
+    resumes from, beside the summary (``state_traj_time``, (b_real,))."""
+    if "traj_time" in info:
+        out["state_traj_time"] = info["traj_time"][:b_real].cpu().numpy()
 
 
 def _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
@@ -1336,7 +1393,8 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
     ``gamma_hi`` are None. ``warm_start`` (sample mode) resumes from an
     earlier ragged fit of the same batch layout as ``fit_spectra_batch``
     does. The other arguments are ``fit_spectra_batch``'s.
-    ``sampler='chees'`` and ``mesh`` raise (ROADMAP item 12)."""
+    ``sampler='chees'`` runs ChEES (``chees_cfg``) as ``fit_spectra_batch``
+    does, cold and warm. ``mesh`` raises (ROADMAP item 12)."""
     if mode not in ("sample", "optimize"):
         raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
                          "'optimize'")
@@ -1344,19 +1402,19 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
         raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
                                   "item 12)")
     if mode == "sample":
-        if sampler == "chees":
-            raise NotImplementedError("sampler='chees' is not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
-        if sampler not in ("nuts", "shmc"):
+        if sampler not in ("nuts", "chees", "shmc"):
             raise ValueError(f"Unknown sampler {sampler!r}; options are "
                              "'nuts', 'chees', 'shmc'")
         if sampler == "shmc":
             run_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
+            run_cfg.validate()
+        elif sampler == "chees":
+            run_cfg = chees_cfg if chees_cfg is not None else ChEESConfig()
         else:
             run_cfg = NUTSConfig(max_depth=max_tree_depth, unroll=unroll,
                                  flat_tree=flat_tree, tree_scan=tree_scan,
                                  scan_unroll=scan_unroll)
-        run_cfg.validate()
+            run_cfg.validate()
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     mark, phases = _phase_clock(timing, dev)
@@ -1394,23 +1452,31 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(b, chains)))
         q0 = q0.reshape(b * chains, D).contiguous()
-        metric, init_eps, form = None, 1.0, "diag"
+        metric, init_eps, form, init_traj = None, 1.0, "diag", None
         if warm_start is not None:
             warm = _warm_state(warm_start, cfg, b_real, b, chains,
                                ragged=True)
             q0, run_cfg, metric, init_eps = _warm_run(sampler, run_cfg, warm,
                                                       dt, dev)
+            if sampler == "chees":
+                init_traj = _warm_traj_time(warm_start, b, dt, dev,
+                                            ragged=True)
             if metric.ndim == 3:
                 form = "dense_rows"
+        budget = ("warm-chees" if warm_start is not None else "chees",
+                  chains, warmup, samples)
         entry = _sampler_entry("fit_spectra_ragged", cfg, data,
                                targets.repeat_interleave(chains, dim=0),
-                               run_cfg, form, density=log_density)
+                               run_cfg, form, density=log_density,
+                               budget=budget)
         draws, info = _run_sampler(sampler, entry, q0, chains, warmup,
                                    samples, run_cfg, gen, timing,
-                                   metric=metric, init_step_size=init_eps)
+                                   metric=metric, init_step_size=init_eps,
+                                   init_traj_time=init_traj)
         mark("sample")
         out = _summarize_blocks(cfg, data, draws, info, chains, samples,
                                 b_real, phi_mon, phi_eval)
+        _add_traj_time(out, info, b_real)
         mark("summary")
         result = _sampled_result(cfg, out, z_scales, dists_norm, tau, eps,
                                  first_basis)

@@ -89,3 +89,54 @@ def jax_shmc_stream(keys, dim, chains, n_leaps):
         out.append((torch.as_tensor(np.concatenate(zs)),
                     torch.as_tensor(np.concatenate(us, axis=1))))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chees_draw_fn(dim, chains, max_steps):
+    def one(key):
+        key, k_mom, k_j, k_sel = jax.random.split(key, 4)
+        z = jax.random.normal(k_mom, (chains, dim), jnp.float64)
+        uj = jax.random.uniform(k_j, (), jnp.float64)
+
+        def leaf(i):
+            return jax.random.uniform(jax.random.fold_in(k_sel, i), (chains,),
+                                      jnp.float64)
+
+        idx = jnp.arange(max_steps)
+        ub = jax.vmap(leaf)(2 * idx)
+        uf = jax.vmap(leaf)(2 * idx + 1)
+        return key, z, uj, ub, uf
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_chees_stream(keys, dim, chains, max_steps, draws):
+    """The random numbers JAX's sample_chees draws from each spectrum's key
+    (chees.py:160-165 eps0 momenta per chain; per draw :202 split(key, 4)
+    into k_mom, k_j, k_sel, :219 z, :233 uj and :258-260 the leaf uniforms
+    from fold_in(k_sel, 2 i + pbase), pbase 0 backward and 1 forward),
+    laid out as the port's spectrum-major rows: eps0 normals (B*C, D),
+    then per draw (z (B*C, D), uj (B,), u_back (max_steps, B*C), u_fwd
+    (max_steps, B*C))."""
+    z0, ks = [], []
+    for key in keys:
+        key, k_eps = jax.random.split(key)
+        z0.append(np.stack([np.asarray(jax.random.normal(k, (dim,),
+                                                         jnp.float64))
+                            for k in jax.random.split(k_eps, chains)]))
+        ks.append(key)
+    out = [torch.as_tensor(np.concatenate(z0))]
+    ks = jnp.stack(ks)
+    fn = _jax_chees_draw_fn(dim, chains, max_steps)
+    b = ks.shape[0]
+    for _ in range(draws):
+        ks, z, uj, ub, uf = fn(ks)
+
+        def legs(u):
+            # (B, max_steps, C) -> (max_steps, B*C)
+            return torch.as_tensor(np.array(u).transpose(1, 0, 2).reshape(
+                max_steps, b * chains))
+
+        out.append((torch.as_tensor(np.array(z).reshape(b * chains, dim)),
+                    torch.as_tensor(np.array(uj)), legs(ub), legs(uf)))
+    return out

@@ -149,10 +149,22 @@ def test_cli_exit_codes(tmp_path, data_dir):
     with pytest.raises(NotImplementedError, match="item 12"):
         _main(["fit", str(data_dir / "spec_0.csv"), "--out", str(tmp_path),
                "--mesh"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _main(["fit", str(data_dir / "spec_0.csv"), "--out", str(tmp_path),
-               "--sampler", "chees", "--chains", "1", "--warmup", "2",
-               "--samples", "2"])
+    # --sampler chees runs in both CLIs: the same files and columns,
+    # finite bands
+    outs = {}
+    for name, run in (("port", _main), ("jax", jax_main)):
+        outs[name] = tmp_path / f"chees_{name}"
+        assert run(["fit", str(data_dir / "spec_0.csv"), "--out",
+                    str(outs[name]), "--sampler", "chees", "--chains", "2",
+                    "--warmup", "2", "--samples", "2"]) == 0
+    assert (sorted(p.name for p in outs["port"].iterdir())
+            == sorted(p.name for p in outs["jax"].iterdir()))
+    for f in ("summary.csv", "Gout_spec_0.csv"):
+        got, want = (pd.read_csv(outs[k] / f) for k in ("port", "jax"))
+        assert list(got.columns) == list(want.columns), f
+    g = pd.read_csv(outs["port"] / "Gout_spec_0.csv")
+    assert np.isfinite(g.values).all()
+    assert (g["gamma_lo"] <= g["gamma_hi"]).all()
 
 
 def test_cli_skips_unparseable_file(data_dir, tmp_path):

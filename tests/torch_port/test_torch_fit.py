@@ -154,9 +154,21 @@ def test_unported_options_raise():
         np.testing.assert_allclose(
             md[:, :, 6:].mean(1), res.diagnostics["gamma_eval_mean"],
             rtol=1e-5, atol=1e-6 * np.abs(md[:, :, 6:]).max())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fit_spectra_batch(freq, Zb, device="cpu",
-                          **{**KW, "sampler": "chees"})
+    # sampler='chees' (item 12's first piece, ported): both packages run
+    # it on these spectra, with the same diagnostics and shapes, the
+    # trajectory time per spectrum and finite coefficients
+    from bayes_drt_tpu.infer.chees import ChEESConfig as JaxChEESConfig
+    from bayes_drt_tpu_torch.infer.chees import ChEESConfig
+    kw_c = {**KW, "sampler": "chees", "warmup": 30, "samples": 20}
+    got_c = fit_spectra_batch(freq, Zb, device="cpu",
+                              chees_cfg=ChEESConfig(max_steps=32), **kw_c)
+    want_c = jax_fit(freq, Zb, chees_cfg=JaxChEESConfig(max_steps=32),
+                     **kw_c)
+    for k, v in want_c.diagnostics.items():
+        if k != "state_cfg":
+            assert np.shape(got_c.diagnostics[k]) == np.shape(v), k
+    assert got_c.diagnostics["state_traj_time"].shape == (4,)
+    assert np.isfinite(got_c.coef).all()
     # warm_start and precondition (ported with item 12's metric family)
     # keep the JAX package's guards; a result carrying no sampler state
     # and the pooled metric on SHMC raise them

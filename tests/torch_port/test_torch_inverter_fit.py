@@ -16,7 +16,8 @@ from bayes_drt_tpu.models.posterior import init_unconstrained as jax_init
 from bayes_drt_tpu_torch import Inverter, sim
 from bayes_drt_tpu_torch import inverter as inverter_module
 from bayes_drt_tpu_torch.models.posterior import log_density
-from jax_noise_reference import jax_nuts_stream, jax_shmc_stream
+from jax_noise_reference import (jax_chees_stream, jax_nuts_stream,
+                                 jax_shmc_stream)
 from test_torch_viz import plotted_data, plt
 
 torch.set_num_threads(1)
@@ -158,7 +159,8 @@ def test_map_restarts_density_fn_and_model_data():
 
 @pytest.mark.parametrize("sampler,budget", [
     ("nuts", dict(warmup=20, samples=10, max_tree_depth=5)),
-    ("shmc", dict(warmup=30, samples=10))])
+    ("shmc", dict(warmup=30, samples=10)),
+    ("chees", dict(warmup=30, samples=10))])
 def test_sample_matches_jax(sampler, budget):
     """Tiny sampled fits (ridge-seeded, non-centered, 2 chains): the port's
     Inverter, started from the JAX package's chain starts and replaying
@@ -190,6 +192,11 @@ def test_sample_matches_jax(sampler, budget):
         # pooled chains draw from the first chain key, n_steps 32 a draw
         noise = jax_shmc_stream(keys[:1], dim, 2, [32] * n_draws)
         name, run = "sample_shmc", inverter_module.sample_shmc
+    if sampler == "chees":
+        # pooled chains draw from the first chain key, leaf uniforms to
+        # the default max_steps
+        noise = jax_chees_stream(keys[:1], dim, 2, 128, n_draws)
+        name, run = "sample_chees", inverter_module.sample_chees
 
     def jax_start(cfg, data, gen, batch_shape=(), init_values=None):
         return {k: torch.as_tensor(v, dtype=data.freq.dtype)
@@ -278,8 +285,22 @@ def test_fit_validation_and_unported_methods():
         b.fit(FREQ, Z, mode="map")
     with pytest.raises(ValueError, match="Unknown sampler"):
         b.fit(FREQ, Z, mode="sample", sampler="hmc")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        b.fit(FREQ, Z, mode="sample", sampler="chees")
+    # sampler='chees' runs (replayed against the JAX package in
+    # test_sample_matches_jax): both packages' fits at a short budget give
+    # the same diagnostics, the chains' step sizes, finite coefficients
+    from bayes_drt_tpu.infer.chees import ChEESConfig as JaxChEESConfig
+    from bayes_drt_tpu_torch.infer.chees import ChEESConfig
+    ch = dict(mode="sample", sampler="chees", chains=2, warmup=20,
+              samples=10, ncp=True, random_seed=2)
+    a = JaxInverter(basis_freq=BASIS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        a.fit(FREQ, Z, chees_cfg=JaxChEESConfig(max_steps=16), **ch)
+        b.fit(FREQ, Z, chees_cfg=ChEESConfig(max_steps=16), **ch)
+    assert set(a.sample_diagnostics) <= set(b.sample_diagnostics)
+    assert b._raw_draws.shape == a._raw_draws.shape
+    assert b.sample_diagnostics["step_size"].shape == (2,)
+    assert np.isfinite(b.distribution_fits["DRT"]["coef"]).all()
     with pytest.raises(ValueError, match="add_model_data"):
         b.fit(FREQ, Z, add_model_data={"nope": 1.0}, max_iter=5)
     multi = Inverter(distributions={"a": {"kernel": "DRT"},

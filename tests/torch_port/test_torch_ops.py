@@ -106,3 +106,33 @@ def test_construct_A_rejects_unported_kernels():
                         device="cpu")
     with pytest.raises(ValueError, match="Invalid kernel"):
         construct_A(freq, "real", tau=tau, kernel="RQ", device="cpu")
+
+
+def test_top_level_exports_match_jax():
+    """The port's top level carries every name of the JAX package's
+    ``__all__`` (the matrix builders, the basis lookup, the version), the
+    builders the port's own ops functions, which agree with the JAX
+    package's through the top level."""
+    import bayes_drt_tpu
+    import bayes_drt_tpu_torch
+    from bayes_drt_tpu_torch.ops import basis, matrices
+    assert set(bayes_drt_tpu.__all__) <= set(bayes_drt_tpu_torch.__all__)
+    for name in bayes_drt_tpu_torch.__all__:
+        assert hasattr(bayes_drt_tpu_torch, name), name
+    assert bayes_drt_tpu_torch.__version__ == bayes_drt_tpu.__version__
+    for name in ("construct_A", "construct_L", "construct_M",
+                 "get_tau_basis"):
+        assert getattr(bayes_drt_tpu_torch, name) is getattr(matrices, name)
+    assert bayes_drt_tpu_torch.get_basis_func is basis.get_basis_func
+    freq, tau, eps = _grid(21)
+    np.testing.assert_allclose(
+        bayes_drt_tpu_torch.get_tau_basis(freq),
+        np.asarray(bayes_drt_tpu.get_tau_basis(freq)), rtol=1e-14)
+    np.testing.assert_allclose(
+        bayes_drt_tpu_torch.construct_A(freq, "imag", tau=tau, epsilon=eps,
+                                        dtype=torch.float64,
+                                        device="cpu").numpy(),
+        np.asarray(bayes_drt_tpu.construct_A(freq, "imag", tau=tau,
+                                             epsilon=eps,
+                                             dtype=jnp.float64)),
+        rtol=1e-10, atol=1e-13)

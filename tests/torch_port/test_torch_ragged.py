@@ -17,8 +17,10 @@ from bayes_drt_tpu.ops import basis as jax_basis
 from bayes_drt_tpu.ops.matrices import construct_A as jax_construct_A
 from bayes_drt_tpu.ops.matrices import construct_L as jax_construct_L
 from bayes_drt_tpu.parallel import batch as jax_batch
+from bayes_drt_tpu.infer import chees as jax_chees
 from bayes_drt_tpu.infer.chees import SHMCConfig as JaxSHMCConfig
 from bayes_drt_tpu_torch import sim
+from bayes_drt_tpu_torch.infer import chees
 from bayes_drt_tpu_torch.infer.chees import SHMCConfig
 from bayes_drt_tpu_torch.models.posterior import (posterior_value_and_grad,
                                                   unravel)
@@ -263,9 +265,21 @@ def test_ragged_sample_outputs_match_jax(sampler):
 
 def test_ragged_raises():
     spectra = _fleet()
-    for kw in (dict(sampler="chees"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            batch.fit_spectra_ragged(spectra, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        batch.fit_spectra_ragged(spectra, device="cpu", mesh=object())
+    # sampler='chees' (item 12's first piece) runs, as in the JAX package:
+    # the same diagnostics and shapes, a trajectory time per spectrum
+    kw = dict(sampler="chees", chains=2, warmup=20, samples=10, ncp=True)
+    got = batch.fit_spectra_ragged(
+        spectra, device="cpu", chees_cfg=chees.ChEESConfig(max_steps=16),
+        **kw)
+    want = jax_batch.fit_spectra_ragged(
+        spectra, chees_cfg=jax_chees.ChEESConfig(max_steps=16), **kw)
+    for k, v in want.diagnostics.items():
+        if k != "state_cfg":
+            assert np.shape(got.diagnostics[k]) == np.shape(v), k
+    assert got.diagnostics["state_traj_time"].shape == (len(spectra),)
+    assert np.isfinite(got.coef).all()
     # warm_start is ported (item 12's metric family): a result without
     # sampler state fails its guard
     with pytest.raises(ValueError, match="missing diagnostics"):

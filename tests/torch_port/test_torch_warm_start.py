@@ -80,7 +80,11 @@ def test_warm_start_guards(tiny_nuts):
     with pytest.raises(ValueError, match="builds a dense metric"):
         fit_spectra_batch(freq, Zb, precondition="pooled", sampler="shmc",
                           **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # ChEES (ported) resumes only from a result carrying its trajectory
+    # time, which a NUTS fit lacks
+    with pytest.raises(ValueError, match=r"sampler='chees' needs "
+                       r"diagnostics\['state_traj_time'\] \(a previous "
+                       "chees fit\)"):
         fit_spectra_batch(freq, Zb, warm_start=res0, sampler="chees", **kw)
     spectra = [(freq, z) for z in Zb]
     with pytest.raises(ValueError, match="different model configuration "
