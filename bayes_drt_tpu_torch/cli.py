@@ -35,9 +35,6 @@ import time
 
 import numpy as np
 
-_ITEM_12 = "is not ported yet (ROADMAP Queue 1 item 12)"
-
-
 def _expand_paths(paths, pattern):
     files = []
     for p in paths:
@@ -101,8 +98,7 @@ def _fit_parser(sub):
     p.add_argument("--eval-points", type=int, default=200,
                    help="points in the output tau grid")
     p.add_argument("--mesh", action="store_true",
-                   help="shard each batch over all visible devices (not "
-                        "ported yet)")
+                   help="shard each batch over all visible devices")
     p.add_argument("--peaks", action="store_true",
                    help="also fit HN peaks to each recovered distribution "
                         "(writes Peaks_<stem>.csv and a n_peaks column)")
@@ -152,23 +148,26 @@ def _write_columns(path, cols):
         w.writerows(zip(*cells))
 
 
-def fit_bucket(args, freq, Zb, tau_eval, cv_lams=None):
+def fit_bucket(args, freq, Zb, tau_eval, cv_lams=None, mesh=None):
     """One bucket's batched fit as ``cmd_fit`` runs it (``args`` its parsed
-    flags). Returns the BatchFitResult."""
+    flags), sharded over ``mesh`` when one is given. Returns the
+    BatchFitResult."""
     from .parallel import fit_spectra_batch, ridge_fit_spectra_batch
     dev = args.device
     if args.mode == "ridge":
         if args.outliers:
             # Effat-Ciucci outlier-robust ridge (hyper-weights)
             return ridge_fit_spectra_batch(freq, Zb, hyper_lambda=False,
-                                           hyper_weights=True, device=dev)
+                                           hyper_weights=True, device=dev,
+                                           mesh=mesh)
         return ridge_fit_spectra_batch(freq, Zb, cv_lambdas=cv_lams,
-                                       device=dev)
+                                       device=dev, mesh=mesh)
     if args.mode == "optimize":
         return fit_spectra_batch(
             freq, Zb, mode="optimize", max_iter=args.max_iter,
             init_from_ridge=True, outliers=args.outliers,
-            nonneg=args.nonneg, random_seed=args.seed, device=dev)
+            nonneg=args.nonneg, random_seed=args.seed, device=dev,
+            mesh=mesh)
     from .infer.chees import SHMCConfig
     kw = dict(sampler=args.sampler, chains=args.chains,
               warmup=args.warmup, samples=args.samples,
@@ -182,7 +181,7 @@ def fit_bucket(args, freq, Zb, tau_eval, cv_lams=None):
         freq, Zb, mode="sample", outliers=args.outliers,
         nonneg=args.nonneg, random_seed=args.seed,
         escalate=False if args.no_escalate else None,
-        gamma_eval_tau=tau_eval, device=dev, **kw)
+        gamma_eval_tau=tau_eval, device=dev, mesh=mesh, **kw)
 
 
 def _np(a):
@@ -191,10 +190,8 @@ def _np(a):
 
 def cmd_fit(args):
     from .native import load_spectra
-    from .parallel import evaluate_gamma
+    from .parallel import evaluate_gamma, make_mesh
 
-    if args.mesh:
-        raise NotImplementedError("--mesh " + _ITEM_12)
     cv_lams = None
     if args.ridge_cv:
         try:
@@ -227,6 +224,9 @@ def cmd_fit(args):
     if not buckets:
         print("no spectra loaded", file=sys.stderr)
         return 2
+    # every visible device of the --device kind (one virtual shard on the
+    # CPU)
+    mesh = make_mesh(device=args.device) if args.mesh else None
 
     rows = [{"file": os.path.basename(p), "status": f"load_error: {err}"}
             for p, err in failed]
@@ -234,7 +234,7 @@ def cmd_fit(args):
         freq, Zb, paths = bucket["freq"], bucket["Z"], bucket["paths"]
         tau_eval = _eval_tau(_basis_tau(freq), args.eval_points)
         t0 = time.time()
-        res = fit_bucket(args, freq, Zb, tau_eval, cv_lams)
+        res = fit_bucket(args, freq, Zb, tau_eval, cv_lams, mesh)
         elapsed = time.time() - t0
 
         gammas = evaluate_gamma(res, tau_eval)

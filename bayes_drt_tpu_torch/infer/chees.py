@@ -28,8 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-_ITEM_12 = "is not ported yet (ROADMAP Queue 1 item 12)"
-
+from .._numerics import graph_capture
+from ..progcache import precise_matmuls
 
 class SHMCConfig(NamedTuple):
     """Every draw of every chain runs exactly ``n_steps`` leapfrogs.
@@ -41,10 +41,18 @@ class SHMCConfig(NamedTuple):
     single series DRT always runs its trajectory kernel, and both raise
     on any other model. ``recompute_grad`` recomputes the selected state's
     gradient once a draw instead of carrying it through the leaves (same
-    posterior; the trajectory kernel always carries it). ``precision`` is
-    "highest" (true fp32 products); the reduced-precision arm and the
-    store-then-select trajectory (``traj_store``) are not ported and
-    raise. ``rng_impl='rbg'`` (the TPU's RngBitGenerator) is dropped and
+    posterior; the trajectory kernel always carries it). ``traj_store``
+    runs the store-then-select trajectory (``shmc_trajectory_store``: the
+    leaves' states stacked, one Gumbel-max categorical a draw), the same
+    target distribution from another stream of draws; the trajectory
+    kernel has no such form, so on the single series DRT it takes the
+    generic sampler unless the flat arm is named. ``precision`` is
+    "highest" (true fp32 products) or "high": the generic sampler's
+    posterior products as tf32x3 (``_numerics.tf32x3_matmul``) on a CUDA
+    device, the counterpart of the JAX package's bf16x3, opt-in (the
+    trajectory kernel stays fp32, as the JAX package's flat-chain kernel
+    pins 'highest'; on the CPU 'high' equals 'highest').
+    ``rng_impl='rbg'`` (the TPU's RngBitGenerator) is dropped and
     raises."""
     n_steps: int = 32
     warm_steps: int = 0           # leapfrogs per warmup draw (0 = n_steps)
@@ -73,14 +81,9 @@ class SHMCConfig(NamedTuple):
     precision: str = "highest"
 
     def validate(self) -> None:
-        if self.precision != "highest":
-            raise NotImplementedError(
-                f"precision={self.precision!r} is not ported; the port runs "
-                "true fp32 ('highest') until an A/B on the quality gates "
-                "admits a reduced-precision arm")
-        if self.traj_store:
-            raise NotImplementedError("SHMCConfig(traj_store=True) "
-                                      + _ITEM_12)
+        if self.precision not in ("highest", "high"):
+            raise ValueError(f"precision must be 'highest' or 'high', not "
+                             f"{self.precision!r}")
         if self.rng_impl != "threefry":
             raise NotImplementedError(
                 f"SHMCConfig(rng_impl={self.rng_impl!r}) is dropped: it "
@@ -202,17 +205,77 @@ def shmc_trajectory(value_and_grad, n_leap: int, max_e: float, q, p0, grad,
     return pq, plp[:, 0], pg, pkin[:, 0], sacc[:, 0], ever[:, 0]
 
 
+def shmc_trajectory_store(value_and_grad, n_leap: int, max_e: float, q, p0,
+                          grad, logp, eps, m_inv, j, u_sel):
+    """The store-then-select form of ``shmc_trajectory`` (the JAX
+    package's ``traj_store``, chees.py:617-671): a leaf carries only the
+    integrator state and ``dead``; the leaves' (q, logp, kin, w, dead)
+    stack, and one Gumbel-max categorical over the n_leap + 1 states
+    (the start state at weight 1) picks the next state with the uniforms
+    ``u_sel`` (n_leap + 1, R), floored at the dtype's smallest normal. A
+    leg that meets NaN or dH > max_e is dead from there on: it keeps
+    integrating, its states carry w = -inf and are never selected. The
+    selected state's gradient is evaluated once. The same target
+    distribution as the streaming form, from another use of the uniforms.
+    Returns (q, logp, grad, kin, sacc, diverging) of the selected
+    point."""
+    j = torch.as_tensor(j, device=q.device)
+    rows = q.shape[0]
+    kin0 = 0.5 * torch.sum(p0 * p0 * m_inv, dim=1)
+    H0 = -logp + kin0
+    epsc = eps[:, None]
+    neg_inf = torch.full_like(logp, -math.inf)
+    qq, pp, gg = q, -p0, grad
+    dead = torch.zeros_like(logp, dtype=torch.bool)
+    qs, lps, kins, ws, deads = [], [], [], [], []
+    for i in range(n_leap):
+        flip = j == i
+        qq = torch.where(flip, q, qq)
+        pp = torch.where(flip, p0, pp)
+        gg = torch.where(flip, grad, gg)
+        dead = dead & ~flip
+        p_half = pp + 0.5 * epsc * gg
+        q_new = qq + epsc * p_half * m_inv
+        lp_new, g_new = value_and_grad(q_new)
+        p_new = p_half + 0.5 * epsc * g_new
+        kin = 0.5 * torch.sum(p_new * p_new * m_inv, dim=1)
+        Hn = -lp_new + kin
+        dead = dead | torch.isnan(Hn) | ((Hn - H0) > max_e)
+        qs.append(q_new)
+        lps.append(lp_new)
+        kins.append(kin)
+        ws.append(torch.where(dead, neg_inf, H0 - Hn))
+        deads.append(dead)
+        qq, pp, gg = q_new, p_new, g_new
+    w = torch.stack(ws)
+    w_all = torch.cat([torch.zeros_like(w[:1]), w])
+    u = torch.clamp(u_sel, min=torch.finfo(u_sel.dtype).tiny)
+    idx = torch.argmax(w_all - torch.log(-torch.log(u)), dim=0)
+    took = idx > 0
+    safe = torch.clamp(idx - 1, min=0)
+    ar = torch.arange(rows, device=q.device)
+    q_next = torch.where(took[:, None], torch.stack(qs)[safe, ar], q)
+    logp_next = torch.where(took, torch.stack(lps)[safe, ar], logp)
+    kin_next = torch.where(took, torch.stack(kins)[safe, ar], kin0)
+    _, grad_next = value_and_grad(q_next)
+    sacc = torch.clamp(torch.exp(w), max=1.0).sum(dim=0)
+    return (q_next, logp_next, grad_next, kin_next, sacc,
+            torch.stack(deads).any(dim=0))
+
+
 class GraphedTrajectory:
-    """``shmc_trajectory`` for fixed shapes and ``n_leap`` as one CUDA
-    graph: the draw's every leaf (and the recompute) leave the host in one
-    replay. The constructor's arguments fix the shapes, dtype and the
+    """``shmc_trajectory`` (or, with ``store``, ``shmc_trajectory_store``)
+    for fixed shapes and ``n_leap`` as one CUDA graph: the draw's every
+    leaf (and the recompute) leave the host in one replay. The
+    constructor's arguments fix the shapes, dtype and the
     ``value_and_grad`` closure, whose own tensors must stay alive and in
     place. A call copies the draw's inputs (q, p0, grad, logp, eps, m_inv,
     j, u_sel) into the graph's buffers, replays and returns copies of the
     outputs, equal to the eager form's."""
 
     def __init__(self, value_and_grad, n_leap, max_e, recompute_grad, q, p0,
-                 grad, logp, eps, m_inv, j, u_sel, pool=None):
+                 grad, logp, eps, m_inv, j, u_sel, pool=None,
+                 store: bool = False):
         if q.device.type != "cuda":
             raise ValueError("GraphedTrajectory runs on a CUDA device")
         self._j = torch.tensor(int(j), device=q.device)
@@ -220,6 +283,9 @@ class GraphedTrajectory:
         self._u = u_sel.clone()
 
         def run():
+            if store:
+                return shmc_trajectory_store(value_and_grad, n_leap, max_e,
+                                             *self._inp, self._j, self._u)
             return shmc_trajectory(value_and_grad, n_leap, max_e,
                                    *self._inp, self._j, self._u,
                                    recompute_grad=recompute_grad)
@@ -230,7 +296,7 @@ class GraphedTrajectory:
             run()
         torch.cuda.current_stream(q.device).wait_stream(side)
         self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph, pool=pool):
+        with graph_capture(self._graph, q.device, pool=pool):
             self._out = run()
         self.pool_id = self._graph.pool()
 
@@ -273,7 +339,8 @@ def run_shmc(value_and_grad, traj, q0, warmup: int, samples: int, cfg,
     draw's trajectory and returns (q, logp, grad, kin, sacc, diverging).
     ``noise`` is a zero-argument callable returning an iterator that yields
     the eps0 momentum normals (R, D) once and then (z (R, D), u_sel
-    (n_leap, R)) per draw; by default it draws from ``generator``.
+    (n_leap, R), or (n_leap + 1, R) with ``cfg.traj_store``) per draw; by
+    default it draws from ``generator``.
     ``init_step_size`` (a float or per-spectrum (B,)) seeds the step-size
     search, ``metric`` ((D,) or (B, D)) the inverse metric. ``time_traj``
     brackets each trajectory with CUDA events (``info['traj_ms']``);
@@ -295,7 +362,8 @@ def run_shmc(value_and_grad, traj, q0, warmup: int, samples: int, cfg,
     if noise is None:
         if generator is None:
             raise ValueError("pass a torch.Generator or a noise stream")
-        noise = generator_noise(generator, rt, dim, dtype, dev, nl_sched)
+        noise = generator_noise(generator, rt, dim, dtype, dev,
+                                nl_sched + int(cfg.traj_store))
     stream = noise()
 
     def rows(x):
@@ -422,21 +490,28 @@ def sample_shmc(value_and_grad, q0, warmup: int, samples: int,
     warmup length and one for the sampling length, captured at their first
     draw into one memory pool; on the CPU it runs eagerly. ``graphs`` (a
     progcache runner's dict) keeps the trajectories across calls, keyed
-    on their shapes, leapfrog count, ``recompute_grad`` and
-    ``max_energy_error``; ``value_and_grad`` must then be the runner's
-    function. With ``time_draws``, ``info['capture_s']`` holds the
-    captures' seconds (none on a hit).
+    on their shapes, leapfrog count, ``recompute_grad``,
+    ``max_energy_error``, ``traj_store`` and ``precision``;
+    ``value_and_grad`` must then be the runner's function. The run is
+    under ``cfg.precision`` (progcache.precise_matmuls). With
+    ``time_draws``, ``info['capture_s']`` holds the captures' seconds
+    (none on a hit).
     Returns (draws (B, C, S, D), info with a leading B axis); ``inv_mass``
     is per spectrum (B, D), ``step_size`` per chain (B, C)."""
     max_e = cfg.max_energy_error
     rc = cfg.recompute_grad
     graphs = {} if graphs is None else graphs
     capture_s = []
+    store = bool(cfg.traj_store)
     base = ("traj",) + tuple(q0.shape) + (str(q0.dtype), str(q0.device),
-                                          float(max_e), bool(rc))
+                                          float(max_e), bool(rc), store,
+                                          cfg.precision)
 
     def traj(n_leap, *args):
         if q0.device.type != "cuda":
+            if store:
+                return shmc_trajectory_store(value_and_grad, n_leap, max_e,
+                                             *args)
             return shmc_trajectory(value_and_grad, n_leap, max_e, *args,
                                    recompute_grad=rc)
         key = base + (n_leap,)
@@ -445,15 +520,17 @@ def sample_shmc(value_and_grad, q0, warmup: int, samples: int,
             pool = next((g.pool_id for k, g in graphs.items()
                          if k[:len(base)] == base), None)
             graphs[key] = GraphedTrajectory(value_and_grad, n_leap, max_e,
-                                            rc, *args, pool=pool)
+                                            rc, *args, pool=pool,
+                                            store=store)
             torch.cuda.synchronize(q0.device)
             capture_s.append(time.perf_counter() - t0)
         return graphs[key](*args)
 
-    draws, info = run_shmc(value_and_grad, traj, q0, warmup, samples, cfg,
-                           chains, generator=generator, noise=noise,
-                           init_step_size=init_step_size, metric=metric,
-                           time_draws=time_draws)
+    with precise_matmuls(cfg.precision):
+        draws, info = run_shmc(value_and_grad, traj, q0, warmup, samples,
+                               cfg, chains, generator=generator, noise=noise,
+                               init_step_size=init_step_size, metric=metric,
+                               time_draws=time_draws)
     if time_draws:
         info["capture_s"] = capture_s
     return draws, info
@@ -648,7 +725,7 @@ class ChEESLeaves:
             run()
         torch.cuda.current_stream(dev).wait_stream(side)
         self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
+        with graph_capture(self._graph, dev):
             run()
         self.pool_id = self._graph.pool()
 

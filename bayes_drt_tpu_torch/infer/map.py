@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .._numerics import graph_capture
+
 
 class MapResult(NamedTuple):
     params: torch.Tensor      # (R, D)
@@ -370,7 +372,7 @@ class _LBFGS:
                          ("step", lambda: self.step(self.s, last=False)),
                          ("post", lambda: self.post(self.s))):
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool):
+            with graph_capture(g, dev, pool=pool):
                 fn()
             self.graphs[name] = g
 

@@ -17,8 +17,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from .._numerics import graph_capture
 from ..progcache import cached_program
 
 
@@ -216,7 +218,7 @@ class _TailGraph:
             dst.copy_(src)
         self.pool_id = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=self.pool_id):
+        with graph_capture(self.graph, dev, pool=self.pool_id):
             run()
 
     def pools(self):
@@ -318,6 +320,20 @@ def solve_qp_box(P, q, lb, ub, max_iter: int = 100, tol: float = 1e-10,
     kkt = torch.where(free, g.abs(), torch.zeros_like(g)).max(dim=-1).values
     return QPResult(x=x, n_iter=st.it, kkt_violation=kkt,
                     converged=st.done, at_lb=st.at_lb, at_ub=st.at_ub)
+
+
+def solve_qp_box_batch(P, q, lb, ub, max_iter: int = 100,
+                       tol: float = 1e-10) -> QPResult:
+    """The JAX package's ``solve_qp_box_batch``
+    (``jax.vmap(solve_qp_box, in_axes=(0, 0, None, None))``): QPs over
+    rows P (B, K, K), q (B, K) under one pair of bounds lb, ub (K,) shared
+    by every row. The port's ``solve_qp_box`` is batched already; this is
+    it with the bounds held shared."""
+    if np.ndim(lb) != 1 or np.ndim(ub) != 1:
+        raise ValueError("solve_qp_box_batch takes bounds lb, ub of shape "
+                         "(K,) shared by every row; use solve_qp_box for "
+                         "per-row bounds")
+    return solve_qp_box(P, q, lb, ub, max_iter=max_iter, tol=tol)
 
 
 def solve_nnls(P, q, max_iter: int = 100, tol: float = 1e-10) -> QPResult:

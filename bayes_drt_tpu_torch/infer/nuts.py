@@ -28,13 +28,13 @@ from __future__ import annotations
 
 import math
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-
-_ITEM_12 = "is not ported yet (ROADMAP Queue 1 item 12)"
+from .._numerics import graph_capture
 
 
 class NUTSConfig(NamedTuple):
@@ -47,7 +47,9 @@ class NUTSConfig(NamedTuple):
     and have no effect in eager torch. ``dense_mass`` adapts a dense
     metric per row (Stan's dense_e); ``adapt_mass=False`` keeps the
     initial or passed-in metric and adapts the step size only.
-    ``fused_draws`` raises (``validate``)."""
+    ``fused_draws`` (the JAX package's whole chain as one loop of
+    leapfrog steps) runs the flat form, which gives the same draws;
+    dense mass adaptation is refused with it, as in the JAX package."""
     max_depth: int = 10
     delta: float = 0.9            # adapt_delta (reference control)
     t0: float = 10.0              # adapt_t0 (reference control)
@@ -66,9 +68,12 @@ class NUTSConfig(NamedTuple):
     scan_unroll: int = 1
 
     def validate(self) -> None:
-        if self.fused_draws:
-            raise NotImplementedError("NUTSConfig(fused_draws=True) "
-                                      + _ITEM_12)
+        if self.fused_draws and self.adapt_mass and self.dense_mass:
+            raise ValueError(
+                "fused_draws does not support dense mass adaptation (the "
+                "masked window update would pay a cholesky per leapfrog); "
+                "pass a fixed dense metric with adapt_mass=False, or use "
+                "flat_tree")
 
 
 def metric_form(m_inv) -> str:
@@ -538,6 +543,22 @@ def nuts_transition_flat(value_and_grad, q, logp, grad, noise: NUTSNoise,
     return _tree_result(st)
 
 
+def nuts_transition(value_and_grad, q, logp, grad, noise: NUTSNoise, eps,
+                    m_inv, max_depth: int = 10,
+                    max_energy_error: float = 1000.0, mass_chol=None,
+                    unroll: int = 1):
+    """One NUTS draw in the JAX package's ``nuts_transition`` argument
+    order, the key replaced by the draw's ``NUTSNoise``: the flat
+    transition (``nuts_transition_flat``, early stop), which gives the
+    JAX package's recursive form's draws. Rows q, grad (R, D); logp, eps
+    (R,). ``unroll`` tunes the JAX package's loop and has no effect.
+    Returns (q, logp, grad, NUTSInfo)."""
+    return nuts_transition_flat(value_and_grad, q, logp, grad, noise, eps,
+                                m_inv, max_depth=max_depth,
+                                max_energy_error=max_energy_error,
+                                tree_scan=False, mass_chol=mass_chol)
+
+
 def _tree_start(q, logp, grad, p0, m_inv, max_depth):
     """The fresh tree state of a draw with momentum p0, and H0 per row."""
     kin0 = _kinetic(p0, m_inv)
@@ -601,7 +622,7 @@ class GraphedTree:
         self._graphs, self._states = [], []
         for d in range(max_depth):
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=self.pool_id):
+            with graph_capture(g, q.device, pool=self.pool_id):
                 if d == 0:
                     st, self._H0 = start()
                 st = subtree(d, st, self._H0)
@@ -725,6 +746,12 @@ def sample_nuts(value_and_grad, q0, warmup: int = 200, samples: int = 200,
     eps0 = find_reasonable_step_size(value_and_grad, q0, logp, grad,
                                      next(stream), m_inv, init_eps=eps_init,
                                      mass_chol=chol)
+    if cfg.fused_draws:
+        warnings.warn(
+            "NUTSConfig(fused_draws=True) runs the flat form, which gives "
+            "the JAX package's fused draws; it is kept only for "
+            "API/algorithm completeness. Use tree_scan=True instead.",
+            stacklevel=2)
     if cfg.adapt_mass:
         in_slow, win_end = _window_flags(warmup, cfg)
     else:

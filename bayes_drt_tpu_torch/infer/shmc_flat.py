@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._numerics import matmul as _mm
 from ..models.posterior import (init_unconstrained, posterior_value_and_grad,
                                 ravel)
 from ..progcache import bound, data_shapes
@@ -191,7 +192,7 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target,
     x = x_raw * x_scale
 
     # ---- likelihood ----
-    pred = (x @ A.T + rinf[:, None] * rv[None, :]
+    pred = (_mm(x, A.T) + rinf[:, None] * rv[None, :]
             + induc[:, None] * iv[None, :])
     p_re = pred[:, :n]
     p_im = pred[:, n:]
@@ -206,9 +207,9 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target,
                                         - _LOG_SQRT_2PI), dim=1)
 
     # ---- q-penalty (only q^2 enters the density: no sqrt) ----
-    Lx0 = x_raw @ L[0].T
-    Lx1 = x_raw @ L[1].T
-    Lx2 = x_raw @ L[2].T
+    Lx0 = _mm(x_raw, L[0].T)
+    Lx1 = _mm(x_raw, L[1].T)
+    Lx2 = _mm(x_raw, L[2].T)
     S = (ds[:, 0:1] * Lx0 * Lx0 + ds[:, 1:2] * Lx1 * Lx1
          + ds[:, 2:3] * Lx2 * Lx2)
     iu2 = 1.0 / (ups * ups)
@@ -251,7 +252,7 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target,
         [2.0 * (a_re * a_re)[:, None] * p_re * wsum,
          2.0 * (a_im * a_im)[:, None] * p_im * wsum], dim=1)
 
-    g_x = g_pred @ A                                   # (R, K)
+    g_x = _mm(g_pred, A)                                # (R, K)
     g_xraw = x_scale * g_x
     g_r = torch.sum(g_pred * rv[None, :], dim=1) * rinf + jac1 - er * er
     g_iu = torch.sum(g_pred * iv[None, :], dim=1) * induc + jac1 - ei * ei
@@ -267,7 +268,8 @@ def flat_value_and_grad(spec: FlatSpec, A, L, vecs, scal, q, target,
     gLx0 = -ds[:, 0:1] * Lx0 * iu2
     gLx1 = -ds[:, 1:2] * Lx1 * iu2
     gLx2 = -ds[:, 2:3] * Lx2 * iu2
-    g_xraw = g_xraw + (gLx0 @ L[0] + gLx1 @ L[1] + gLx2 @ L[2])
+    g_xraw = g_xraw + (_mm(gLx0, L[0]) + _mm(gLx1, L[1])
+                       + _mm(gLx2, L[2]))
 
     g_d = torch.stack([
         -0.5 * torch.sum(Lx0 * Lx0 * iu2, dim=1) * ds[:, 0],

@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._numerics import matmul as _mm
 from .priors import (exponential_lpdf, inv_gamma_lpdf, normal_lpdf,
                      std_normal_lpdf)
 
@@ -274,7 +275,7 @@ def predict_target(cfg: PosteriorConfig, data: PosteriorData, c: dict):
     n = data.freq.shape[-1]
     pred = None
     for i, d in enumerate(cfg.dists):
-        contrib = c[f"x_{i}"] @ data.A[i].transpose(-1, -2)
+        contrib = _mm(c[f"x_{i}"], data.A[i].transpose(-1, -2))
         if d.dist_type == "parallel" and not cfg.fitY:
             y_re, y_im = contrib[..., :n], contrib[..., n:]
             denom = y_re ** 2 + y_im ** 2
@@ -361,9 +362,9 @@ def log_density(cfg: PosteriorConfig, data: PosteriorData, params: dict,
                                     data.ups_alpha, data.ups_beta))
         x_raw = c[f"x_raw_{i}"]
         L = data.L[i]
-        q = torch.sqrt(ds[..., 0:1] * (x_raw @ L[0].T) ** 2
-                       + ds[..., 1:2] * (x_raw @ L[1].T) ** 2
-                       + ds[..., 2:3] * (x_raw @ L[2].T) ** 2)
+        q = torch.sqrt(ds[..., 0:1] * _mm(x_raw, L[0].T) ** 2
+                       + ds[..., 1:2] * _mm(x_raw, L[1].T) ** 2
+                       + ds[..., 2:3] * _mm(x_raw, L[2].T) ** 2)
         ups = c[f"ups_{i}"]
         terms.append(normal_lpdf(q, 0.0, ups))
         dups = (0.5 * (ups[..., 1:-1] - 0.5 * (ups[..., :-2] + ups[..., 2:]))

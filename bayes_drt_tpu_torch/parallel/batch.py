@@ -32,7 +32,11 @@ Sample-mode fits resume from an earlier fit's sampler state
 the batch (``precondition='pooled'``). Every captured sampler and solver
 is a progcache runner kept across calls. ``sampler='chees'`` runs
 ChEES-HMC (infer/chees.py:sample_chees) through the autograd value and
-gradient in every route. Not ported yet: meshes.
+gradient in every route. Every entry point takes a ``mesh``
+(parallel/mesh.py): the batch splits into contiguous row ranges, each
+run by the same single-device code on its device in a host thread, the
+results gathered in row order, the random inputs drawn once for the
+whole batch drawn for it and sliced.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ import torch
 from .._numerics import resolve_device, resolve_dtype
 from ..infer.chees import ChEESConfig, SHMCConfig, sample_chees, sample_shmc
 from ..infer.diagnostics import ess_bulk_jnp, ess_jnp, rhat_rank_jnp
-from ..infer.map import newton_polish, run_lbfgs, run_lbfgs_restarts
+from ..infer.map import (MapResult, newton_polish, run_lbfgs,
+                         run_lbfgs_restarts)
 from ..infer.nuts import NUTSConfig, sample_nuts
 from ..infer.ridge import (HyperLambdaConfig, RidgeData, ridge_rows,
                            run_hyper_lambda, run_hyper_weights,
@@ -68,7 +73,9 @@ from ..models.posterior import (MONITOR_SCALARS, constrain, flat_dim,
                                 ravel, unravel)
 from ..ops.matrices import (construct_A, construct_L, construct_M,
                             default_epsilon, get_tau_basis)
-from ..progcache import bound, data_shapes
+from ..progcache import _map as _tree_map
+from ..progcache import bound, data_shapes, precise_matmuls
+from .mesh import Shard, check_precision, resolve_mesh_device, run_shards
 
 
 def _phase_clock(timing, dev):
@@ -125,13 +132,15 @@ class BatchFitResult(NamedTuple):
 
 
 # named sampler presets for fit_spectra_batch(quality=...), the JAX
-# package's, less the bf16x3 matmuls (precision="high"): the port runs
-# true fp32. 'fast' is the bench's SHMC configuration (the unroll knobs
+# package's. 'fast' is the bench's SHMC configuration (the unroll knobs
 # mean nothing here; recompute_grad reaches the generic sampler, the
 # single series DRT's trajectory kernel returns the selected gradient
-# either way); 'strict' is the calibrated-interval NUTS configuration
-# (md8, not Stan's md10: the DRT posterior's trajectories saturate at ~255
-# leapfrogs).
+# either way) in true fp32: the JAX package's preset carries
+# precision="high", but its CUDA counterpart (tf32x3) took 1.6x the fp32
+# time a draw in the A/B on an H100 (PERF.md) at equal quality, so it
+# stays an opt-in arm. 'strict' is the calibrated-interval NUTS
+# configuration (md8, not Stan's md10: the DRT posterior's trajectories
+# saturate at ~255 leapfrogs).
 QUALITY_PRESETS = {
     "fast": dict(
         sampler="shmc", ncp=True, chains=4, warmup=150, samples=250,
@@ -436,7 +445,7 @@ def _sampler_entry(tag, cfg, data, tgt_rows, run_cfg, form="diag",
     """The sampler's value and gradient as a progcache runner, keyed on
     what shapes the sampler's graphs: NUTS's depth, tree form, energy
     bound and the metric's form; SHMC's leapfrog counts,
-    ``recompute_grad`` and energy bound. ChEES takes the autograd value
+    ``recompute_grad``, energy bound, ``traj_store`` and precision. ChEES takes the autograd value
     and gradient on every model (as the JAX package's sample_chees takes
     jax.value_and_grad) and is keyed as the JAX package keys its program:
     ``budget`` is (tag, chains, warmup, samples), tag 'chees' or
@@ -449,7 +458,8 @@ def _sampler_entry(tag, cfg, data, tgt_rows, run_cfg, form="diag",
         density = log_density if density is None else density
     else:
         key = ("shmc", run_cfg.n_steps, run_cfg.warm_steps,
-               bool(run_cfg.recompute_grad), float(run_cfg.max_energy_error))
+               bool(run_cfg.recompute_grad), float(run_cfg.max_energy_error),
+               bool(run_cfg.traj_store), run_cfg.precision)
     return cached_value_and_grad(tag, cfg, data, tgt_rows, density=density,
                                  key=key)
 
@@ -559,7 +569,7 @@ def pooled_metric(pilot):
 
 def _ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
                        ridge_kw, dtype, device, basis_freq=None,
-                       epsilon=None):
+                       epsilon=None, mesh=None):
     """Per-spectrum ridge-seeded init values for a single series
     distribution: one batched hyper-lambda ridge pass over the real
     spectra, padded like the batch, in the scaled coordinates
@@ -570,7 +580,8 @@ def _ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
     rdefaults.update(ridge_kw or {})
     rres = ridge_fit_spectra_batch(frequencies, Z_batch[:b_real],
                                    basis_freq=basis_freq, epsilon=epsilon,
-                                   dtype=dtype, device=device, **rdefaults)
+                                   dtype=dtype, device=device, mesh=mesh,
+                                   **rdefaults)
     b = Z_batch.shape[0]
     iv_x = _pad_rows(np.asarray(rres.coef), b)
     iv_rinf_t = _pad_rows(np.asarray(rres.r_inf), b)
@@ -645,7 +656,7 @@ def _parallel_ridge_init_values(frequencies, Z_batch, b_real, z_scales, K,
 
 def _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data, targets,
                 ridge_kw, dtype, device, basis_freq, epsilon, outliers,
-                dists_norm, basis):
+                dists_norm, basis, mesh=None):
     """init_unconstrained's init_values from a ridge fit, (b, ...) rows:
     x_0, Rinf_raw, induc_raw and, with ``outliers``, the sigma_out_raw
     seed; the batched ridge for a single series distribution (the
@@ -658,7 +669,7 @@ def _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data, targets,
             outliers)
     iv_x, iv_rinf, iv_induc = _ridge_init_values(
         frequencies, Z_batch, b_real, z_scales, cfg.dists[0].K, ridge_kw,
-        dtype, device, basis_freq=basis_freq, epsilon=epsilon)
+        dtype, device, basis_freq=basis_freq, epsilon=epsilon, mesh=mesh)
     iv = {"x_0": iv_x, "Rinf_raw": iv_rinf, "induc_raw": iv_induc}
     if outliers:
         iv["sigma_out_raw"] = _outlier_seed(iv_x, iv_rinf, iv_induc,
@@ -669,6 +680,157 @@ def _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data, targets,
 def _per_spectrum(x, b, chains):
     """(T, b*chains, ...) per-draw rows -> (b, chains, T, ...)."""
     return x.reshape((x.shape[0], b, chains) + x.shape[2:]).movedim(0, 2)
+
+
+def _shard_plan(mesh, b, dev):
+    """The shards of a b-row batch: the mesh's (parallel/mesh.py), or the
+    whole batch on ``dev`` without one."""
+    if mesh is None:
+        return [Shard(dev, 0, b, 0, None)]
+    return mesh.shards(b)
+
+
+def _shard_generator(sh, gen, random_seed):
+    """A shard's generator of per-draw noise: the fit's own, continuing
+    after its batch-wide draws, for the shard at row 0 (so that a
+    one-device mesh draws what the meshless fit draws); for any other
+    shard one seeded from ``random_seed`` and the shard's start row."""
+    if sh.start == 0:
+        return gen
+    seed = np.random.SeedSequence([int(random_seed), sh.start])
+    return torch.Generator(device=sh.device).manual_seed(
+        int(seed.generate_state(1)[0]))
+
+
+def _to_device(tree, device):
+    """A tree of tensors (NamedTuples, tuples, dicts) on ``device``."""
+    return _tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor)
+                     else t, tree)
+
+
+class _SampleJob(NamedTuple):
+    """What every shard of a sample-mode fit shares: the progcache tag,
+    the sampler and model, the budget, whether the single series DRT's
+    trajectory kernel runs (``flat``), the density (None: the default),
+    the summary's options and (tau, eps, gamma_eval_tau, dtype) of its
+    monitor and evaluation bases."""
+    tag: str
+    sampler: str
+    cfg: object
+    chains: int
+    samples: int
+    b_real: int
+    timing: bool
+    flat: bool
+    density: object
+    monitor_thin: int
+    random_seed: int
+    phi: tuple
+
+
+class _ShardRows:
+    """One shard's rows of a sample-mode fit, on the shard's device: its
+    data (per-spectrum data sliced to its spectra), targets, initial
+    states, metric, step sizes and trajectory times cut from the batch's,
+    and its generator. ``pilot`` runs the pooled preconditioner's pilot,
+    ``sample`` the sampler, ``summarize`` the summary of the shard's real
+    spectra."""
+
+    def __init__(self, job, sh, data, targets, q0, gen, metric, init_eps,
+                 init_traj):
+        c = job.chains
+        self.job, self.sh, self.b = job, sh, sh.stop - sh.start
+        spec = slice(sh.start, sh.stop)
+        rows = slice(sh.start * c, sh.stop * c)
+        dev = sh.device
+
+        def cut(x, per_row):
+            if not isinstance(x, torch.Tensor) or x.ndim == 0:
+                return x
+            return x[rows if per_row else spec].to(dev)
+
+        per_row = job.sampler == "nuts"
+        self.data = _to_device(_spectra_rows(data, spec), dev)
+        self.targets = targets[spec].to(dev)
+        self.q0 = cut(q0, True).contiguous()
+        self.metric = cut(metric, per_row)
+        self.init_eps = cut(init_eps, per_row)
+        self.init_traj = cut(init_traj, False)
+        self.gen = _shard_generator(sh, gen, job.random_seed)
+        self.tgt_rows = self.targets.repeat_interleave(c, dim=0).contiguous()
+
+    def _entry(self, run_cfg, form="diag", budget=()):
+        return _sampler_entry(self.job.tag, self.job.cfg, self.data,
+                              self.tgt_rows, run_cfg, form,
+                              density=self.job.density, budget=budget)
+
+    def pilot(self, nuts_cfg, pilot_warmup, pilot_samples):
+        """The pooled preconditioner's diagonal-metric NUTS pilot: draws
+        (S, rows, D)."""
+        entry = self._entry(nuts_cfg)
+        draws, _ = sample_nuts(entry.fn, self.q0, pilot_warmup,
+                               pilot_samples, nuts_cfg, generator=self.gen,
+                               graphs=entry.graphs)
+        return draws
+
+    def sample(self, run_cfg, warmup, form, budget):
+        """Run the sampler on the shard's rows, keeping its draws and
+        info for ``summarize``."""
+        job = self.job
+        flat_args = None
+        entry = None
+        if job.flat:
+            flat_args = (flat_spec_for(job.cfg, self.data),
+                         flat_shared_for(job.cfg, self.data,
+                                         self.targets.dtype), self.tgt_rows)
+        else:
+            entry = self._entry(run_cfg, form, budget)
+        self.draws, self.info = _run_sampler(
+            job.sampler, entry, self.q0, job.chains, warmup, job.samples,
+            run_cfg, self.gen, job.timing, flat_args, self.metric,
+            self.init_eps, self.init_traj)
+
+    def summarize(self):
+        """(summary of the shard's real spectra (None without any), the
+        sampler's timing records); drops the draws."""
+        job, info = self.job, self.info
+        n_real = max(0, min(self.sh.stop, job.b_real) - self.sh.start)
+        out = None
+        if n_real:
+            tau, eps, gamma_eval_tau, dt = job.phi
+            phi_mon, phi_eval = _phi_mats(tau, eps, gamma_eval_tau, dt,
+                                          self.sh.device)
+            out = _summarize_blocks(job.cfg, self.data, self.draws, info,
+                                    job.chains, job.samples, n_real,
+                                    phi_mon, phi_eval, job.monitor_thin)
+            _add_traj_time(out, info, n_real)
+        self.draws = None
+        return out, {k: info[k] for k in _TIMING_KEYS if k in info}
+
+
+def _spectra_rows(data, spec):
+    """Posterior data restricted to the spectra ``spec``: per-spectrum
+    fields (a ragged batch's A (b, 2n, K), freq (b, n) and lik_mask
+    (b, 2n)) sliced, shared-grid data as it is."""
+    if data.freq.ndim != 2:
+        return data
+    return data._replace(A=tuple(a[spec] for a in data.A),
+                         freq=data.freq[spec], lik_mask=data.lik_mask[spec])
+
+
+def _gather_parts(parts):
+    """The shards' summaries joined in row order (numpy) and the timing
+    records of the first shard's sampler."""
+    outs = [o for o, _ in parts if o is not None]
+    out = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    return out, parts[0][1]
+
+
+def _shmc_route(flat, sh_cfg) -> str:
+    """``diagnostics['shmc_route']``: which SHMC trajectory ran."""
+    if flat:
+        return "flat-kernel"
+    return "generic-store" if sh_cfg.traj_store else "generic"
 
 
 def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
@@ -809,8 +971,37 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
 
     ``basis`` names the RBF family (construct_L, like the JAX package's,
     builds the penalty's orders 1 and 2 for 'gaussian' only, so other
-    bases raise its ValueError). Not ported (it raises, naming its
-    ROADMAP item): ``mesh`` (item 12).
+    bases raise its ValueError).
+
+    ``mesh`` (``make_mesh``): the padded batch splits into contiguous row
+    ranges along the mesh's 'spectra' axis, each sampled (or optimized)
+    and summarized on its device by the code above, in a host thread of
+    its device, and the results gather in row order;
+    ``diagnostics['shard_layout']`` records (device index, start, stop)
+    of every device. The fit's setup, the inits, ridge seed and warm
+    state it draws or reads for the whole batch, the pooled pilot's
+    metric and the escalation refit run for the whole batch on the
+    mesh's first device; each device builds its own A (K2) and, on the
+    single series DRT, launches the trajectory kernel on its own rows.
+    The per-draw noise of the shard at row 0 continues the fit's
+    generator, every other shard's comes from a generator seeded from
+    ``random_seed`` and its start row: a one-device mesh gives the
+    meshless fit bit for bit, a larger one a MAP fit with the same
+    starts and a sampled fit that agrees statistically. Naming the
+    flat-chain arm (``SHMCConfig(pallas_traj=True)`` or
+    ``flat_chain=True``) with a mesh raises the JAX package's
+    ValueError.
+
+    ``SHMCConfig(traj_store=True)`` takes the generic sampler on every
+    model (the trajectory kernel has no store-then-select form) unless
+    the flat-chain arm is named too, which ignores it as the JAX
+    package's does; ``diagnostics['shmc_route']`` names the SHMC route
+    taken ('flat-kernel', 'generic' or 'generic-store') and
+    ``diagnostics['precision']`` the products it ran ('high', tf32x3 on
+    CUDA, reaches the generic sampler only; the kernel runs fp32). A
+    precision='high' generic fit on CUDA records the probe
+    ``diagnostics['bf16x3_grad_err']`` and warns outside the screening
+    regime (``_tf32x3_guard``).
     """
     if quality is not None:
         if quality not in QUALITY_PRESETS:
@@ -832,9 +1023,6 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if mode not in ("sample", "optimize"):
         raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
                          "'optimize'")
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
-                                  "item 12)")
     dists = _normalize_distributions(distributions)
     n_dists = len(dists)
     single_parallel = (n_dists == 1 and next(iter(dists.values()))[
@@ -842,7 +1030,8 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     if init_from_ridge and n_dists > 1:
         raise ValueError("Ridge initialization can only be performed for "
                          "single-distribution fits")
-    dev = resolve_device(device)
+    dev = (resolve_device(device) if mesh is None
+           else resolve_mesh_device(mesh, device))
     dt = resolve_dtype(dtype)
     mark, phases = _phase_clock(timing, dev)
 
@@ -858,7 +1047,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         return _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dt,
                         dev, random_seed, init_from_ridge, ridge_kw,
                         n_restarts, max_iter, polish, mark,
-                        phases if timing else None)
+                        phases if timing else None, mesh)
     if sampler not in ("nuts", "chees", "shmc"):
         raise ValueError(f"Unknown sampler {sampler!r}; options are "
                          "'nuts', 'chees', 'shmc'")
@@ -875,8 +1064,22 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                 "sample_chees/sample_shmc support diagonal metrics only "
                 "(their chain-pooled Welford adaptation replaces the pooled "
                 "pilot). Use sampler='nuts' or drop precondition.")
-    flat = (n_dists == 1 and not single_parallel and not outliers)
-    if init_from_ridge and sampler == "shmc" and flat:
+    if sampler == "shmc":
+        sh_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
+        sh_cfg.validate()
+        check_precision(mesh, sh_cfg.precision)
+        if mesh is not None and (sh_cfg.pallas_traj or sh_cfg.flat_chain):
+            raise ValueError(
+                "pallas_traj/flat_chain does not shard over a mesh "
+                "yet; drop mesh= or use the generic shmc path")
+    # the single series DRT's SHMC runs the trajectory kernel (K1), which
+    # has no store-then-select form: traj_store takes the generic sampler
+    # unless the caller names the flat arm, which ignores it as JAX's does
+    flat = (sampler == "shmc" and n_dists == 1 and not single_parallel
+            and not outliers and not (
+                sh_cfg.traj_store
+                and not (sh_cfg.pallas_traj or sh_cfg.flat_chain)))
+    if init_from_ridge and flat:
         raise ValueError("init_from_ridge does not support the flat-chain "
                          "SHMC sampler; use sampler='nuts'")
     if escalate is None:
@@ -892,8 +1095,7 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         esc_kw["init_from_ridge"] = True
     esc_kw.update(escalate_kw or {})
     if sampler == "shmc":
-        sh_cfg = run_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
-        sh_cfg.validate()
+        run_cfg = sh_cfg
     elif sampler == "chees":
         run_cfg = chees_cfg if chees_cfg is not None else ChEESConfig()
     else:
@@ -909,22 +1111,17 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     warm = None
     if warm_start is not None:
         warm = _warm_state(warm_start, cfg, b_real, b, chains)
-    phi_mon, phi_eval = _phi_mats(tau, eps, gamma_eval_tau, dt, dev)
     D = flat_dim(cfg, data.freq.shape[0])
     gen = torch.Generator(device=dev).manual_seed(int(random_seed))
-    tgt_rows = targets.repeat_interleave(chains, dim=0).contiguous()
-    flat_args = None
-    if sampler == "shmc" and flat:
-        flat_args = (flat_spec_for(cfg, data), flat_shared_for(cfg, data, dt),
-                     tgt_rows)
-    elif sampler == "shmc" and (sh_cfg.pallas_traj or sh_cfg.flat_chain):
+    if sampler == "shmc" and not flat and (sh_cfg.pallas_traj
+                                           or sh_cfg.flat_chain):
         flat_spec_for(cfg, data)           # raises: not the flat family
     mark("setup")
     init_values = None
     if init_from_ridge:
         iv = _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data,
                          targets, ridge_kw, dt, dev, basis_freq, epsilon,
-                         outliers, dists_norm, basis)
+                         outliers, dists_norm, basis, mesh)
         init_values = {k: v[:, None] for k, v in iv.items()}
         mark("ridge")
     q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
@@ -940,35 +1137,47 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
             init_traj = _warm_traj_time(warm_start, b, dt, dev)
         if metric.ndim == 3:
             form = "dense_rows"
-    elif precondition == "pooled":
-        pilot = _sampler_entry("fit_spectra_batch", cfg, data, tgt_rows,
-                               nuts_cfg)
-        p_draws, _ = sample_nuts(pilot.fn, q0, pilot_warmup, pilot_samples,
-                                 nuts_cfg, generator=gen,
-                                 graphs=pilot.graphs)
-        m_inv, chol = pooled_metric(
-            _per_spectrum(p_draws, b, chains).cpu().numpy())
-        metric = (m_inv, chol)
-        q0 = p_draws[-1].contiguous()
+    job = _SampleJob(
+        tag="fit_spectra_batch", sampler=sampler, cfg=cfg, chains=chains,
+        samples=samples, b_real=b_real, timing=timing, flat=flat,
+        density=None, monitor_thin=monitor_thin, random_seed=random_seed,
+        phi=(tau, eps, gamma_eval_tau, dt))
+    shards = _shard_plan(mesh, b, dev)
+    built = {str(dev): data}
+
+    def data_on(sh):
+        # K2 builds A once on every device of the mesh
+        if str(sh.device) not in built:
+            built[str(sh.device)] = _build_shared(
+                frequencies, dtype=dt, ncp=ncp, device=sh.device,
+                **setup_kw)[4]
+        return built[str(sh.device)]
+
+    rows = run_shards(lambda sh: _ShardRows(
+        job, sh, data_on(sh), targets, q0, gen, metric, init_eps,
+        init_traj), shards)
+    if precondition == "pooled":
+        pilots = run_shards(lambda sh: rows[sh.position].pilot(
+            nuts_cfg, pilot_warmup, pilot_samples), shards)
+        m_inv, chol = pooled_metric(np.concatenate(
+            [_per_spectrum(p, r.b, chains).cpu().numpy()
+             for p, r in zip(pilots, rows)]))
+        for p, r in zip(pilots, rows):
+            r.q0, r.metric = p[-1].contiguous(), (m_inv, chol)
         run_warmup = max(20, warmup - pilot_warmup - pilot_samples)
         run_cfg = nuts_cfg._replace(adapt_mass=False)
         form = "dense"
         mark("pilot")
     budget = ("warm-chees" if warm is not None else "chees", chains,
               run_warmup, samples)
-    entry = (None if flat_args is not None else _sampler_entry(
-        "fit_spectra_batch", cfg, data, tgt_rows, run_cfg, form,
-        budget=budget))
-    draws, info = _run_sampler(sampler, entry, q0, chains, run_warmup,
-                               samples, run_cfg, gen, timing, flat_args,
-                               metric, init_eps, init_traj)
+    run_shards(lambda sh: rows[sh.position].sample(
+        run_cfg, run_warmup, form, budget), shards)
     mark("sample")
-    out = _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
-                            phi_mon, phi_eval, monitor_thin)
-    _add_traj_time(out, info, b_real)
+    out, info = _gather_parts(run_shards(
+        lambda sh: rows[sh.position].summarize(), shards))
     mark("summary")
     result = _sampled_result(cfg, out, z_scales[:b_real], dists_norm, tau,
-                             eps, basis, n_eval=phi_eval.shape[0])
+                             eps, basis, n_eval=_n_eval(gamma_eval_tau))
     diagnostics = result.diagnostics
     # the model configuration beside the sampler state, so that a warm
     # start refuses a resume across parameterizations
@@ -977,11 +1186,21 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
         # the training grid (descending), where predict_Z_batch serves the
         # draws' mean prediction
         diagnostics["f_train"] = np.asarray(frequencies, float)
+    if mesh is not None:
+        diagnostics["shard_layout"] = mesh.layout(b)
+    if sampler == "shmc":
+        diagnostics["shmc_route"] = _shmc_route(flat, sh_cfg)
+        diagnostics["precision"] = ("highest" if flat
+                                    else sh_cfg.precision)
     if timing:
         for k in _TIMING_KEYS:
             if k in info:
                 diagnostics[k] = np.asarray(info[k])
         diagnostics["phase_s"] = phases
+    if (sampler == "shmc" and not flat and sh_cfg.precision == "high"
+            and dev.type == "cuda"):
+        _tf32x3_guard(diagnostics, cfg, data, targets, b, b_real, sh_cfg,
+                      samples)
 
     # ---- gate-triggered escalation: refit the under-mixed tail ----
     if escalate:
@@ -1027,6 +1246,11 @@ def _coef_scale(cfg, i, z_scales):
 # per-draw timing records of the samplers (and ChEES's per-draw largest
 # leapfrog count and graph replays), kept out of the summary
 _TIMING_KEYS = ("traj_ms", "draw_s", "capture_s", "leaf_max", "replays")
+
+
+def _n_eval(gamma_eval_tau) -> int:
+    return 0 if gamma_eval_tau is None else len(np.atleast_1d(
+        np.asarray(gamma_eval_tau, float)))
 
 
 def _phi_mats(tau, eps, gamma_eval_tau, dtype, device):
@@ -1196,10 +1420,13 @@ def _scaled_targets(Z_batch, b_real, z_scale, dtype, device,
 
 def _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dtype, device,
              random_seed, init_from_ridge, ridge_kw, n_restarts, max_iter,
-             polish, mark, phases):
+             polish, mark, phases, mesh=None):
     """fit_spectra_batch(mode='optimize') on the padded, descending batch:
     L-BFGS from Stan-random restarts or the ridge seed, the Newton polish,
-    and the result at the real rows."""
+    and the result at the real rows. The starts are drawn for the whole
+    batch on ``device``; with a ``mesh`` each shard solves its rows on its
+    device (K2 building its A there) and the optima gather in row
+    order."""
     b = Z_batch.shape[0]
     frequencies, tau, eps, cfg, data, dists_norm = _build_shared(
         frequencies, mode="optimize", dtype=dtype, device=device,
@@ -1212,34 +1439,65 @@ def _fit_map(frequencies, Z_batch, b_real, setup_kw, z_scale, dtype, device,
         iv = _ridge_seed(frequencies, Z_batch, b_real, z_scales, cfg, data,
                          targets, ridge_kw, dtype, device,
                          setup_kw["basis_freq"], setup_kw["epsilon"],
-                         cfg.outliers, dists_norm, setup_kw["basis"])
+                         cfg.outliers, dists_norm, setup_kw["basis"], mesh)
         mark("ridge")
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen, batch_shape=(b,),
                                            init_values=iv))
-        entry = map_objective("fit_spectra_batch", cfg, data, targets,
-                              key=("lbfgs", max_iter))
-        obj = entry.fn
-        res = run_lbfgs(obj.value_and_grad, q0, max_iter=max_iter,
-                        graphs=entry.graphs)
     else:
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(b, n_restarts)))
-        entry = map_objective("fit_spectra_batch", cfg, data,
-                              targets.repeat_interleave(n_restarts, dim=0),
-                              key=("lbfgs", max_iter))
-        res = run_lbfgs_restarts(entry.fn.value_and_grad, q0,
-                                 max_iter=max_iter, graphs=entry.graphs)
-        obj = MapObjective(cfg, data, targets)
-    mark("lbfgs")
-    n_lbfgs = res.n_iter
-    if polish:
+    built = {str(device): data}
+
+    def solve(sh):
+        dev = sh.device
+        if str(dev) not in built:
+            built[str(dev)] = _build_shared(
+                frequencies, mode="optimize", dtype=dtype, device=dev,
+                **setup_kw)[4]
+        dat = built[str(dev)]
+        tgt = targets[sh.start:sh.stop].to(dev)
+        x0 = q0[sh.start:sh.stop].to(dev)
+        if init_from_ridge:
+            entry = map_objective("fit_spectra_batch", cfg, dat, tgt,
+                                  key=("lbfgs", max_iter))
+            obj = entry.fn
+            res = run_lbfgs(obj.value_and_grad, x0, max_iter=max_iter,
+                            graphs=entry.graphs)
+        else:
+            entry = map_objective("fit_spectra_batch", cfg, dat,
+                                  tgt.repeat_interleave(n_restarts, dim=0),
+                                  key=("lbfgs", max_iter))
+            res = run_lbfgs_restarts(entry.fn.value_and_grad, x0,
+                                     max_iter=max_iter, graphs=entry.graphs)
+            obj = MapObjective(cfg, dat, tgt)
+        return res, obj
+
+    def polish_rows(sh):
         # the L-BFGS cap binds before Stan-grade convergence on this
         # posterior; a damped Newton pass certifies the optimum
+        res, obj = parts[sh.position]
         pol = newton_polish(obj.value_and_grad, obj.hessian, res.params)
-        res = pol._replace(n_iter=res.n_iter + pol.n_iter)
+        return pol._replace(n_iter=res.n_iter + pol.n_iter)
+
+    def gather(results):
+        if len(results) == 1:
+            return results[0]
+        return MapResult(*(torch.cat([r[i].to(device) for r in results])
+                           for i in range(len(results[0]))))
+
+    shards = _shard_plan(mesh, b, device)
+    parts = run_shards(solve, shards)
+    mark("lbfgs")
+    n_lbfgs = gather([p[0] for p in parts]).n_iter
+    if polish:
+        res = gather(run_shards(polish_rows, shards))
         mark("polish")
+    else:
+        res = gather([p[0] for p in parts])
     result = _map_result(cfg, data, res, z_scales[:b_real], dists_norm,
                          tau, eps, setup_kw["basis"])
+    if mesh is not None:
+        result.diagnostics["shard_layout"] = mesh.layout(b)
     if phases is not None:
         result.diagnostics["phase_s"] = phases
         result.diagnostics["n_iter_lbfgs"] = n_lbfgs[:b_real].cpu().numpy(
@@ -1394,13 +1652,12 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
     earlier ragged fit of the same batch layout as ``fit_spectra_batch``
     does. The other arguments are ``fit_spectra_batch``'s.
     ``sampler='chees'`` runs ChEES (``chees_cfg``) as ``fit_spectra_batch``
-    does, cold and warm. ``mesh`` raises (ROADMAP item 12)."""
+    does, cold and warm. ``mesh`` shards the padded batch as
+    ``fit_spectra_batch`` does, each shard's spectra with their own A,
+    grids and masks copied to its device."""
     if mode not in ("sample", "optimize"):
         raise ValueError(f"Invalid mode {mode!r}; options are 'sample', "
                          "'optimize'")
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
-                                  "item 12)")
     if mode == "sample":
         if sampler not in ("nuts", "chees", "shmc"):
             raise ValueError(f"Unknown sampler {sampler!r}; options are "
@@ -1408,6 +1665,7 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
         if sampler == "shmc":
             run_cfg = shmc_cfg if shmc_cfg is not None else SHMCConfig()
             run_cfg.validate()
+            check_precision(mesh, run_cfg.precision)
         elif sampler == "chees":
             run_cfg = chees_cfg if chees_cfg is not None else ChEESConfig()
         else:
@@ -1415,7 +1673,8 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
                                  flat_tree=flat_tree, tree_scan=tree_scan,
                                  scan_unroll=scan_unroll)
             run_cfg.validate()
-    dev = resolve_device(device)
+    dev = (resolve_device(device) if mesh is None
+           else resolve_mesh_device(mesh, device))
     dt = resolve_dtype(dtype)
     mark, phases = _phase_clock(timing, dev)
 
@@ -1428,27 +1687,38 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
     gen = torch.Generator(device=dev).manual_seed(int(random_seed))
     mark("setup")
     z_scales = z_scales[:b_real]
+    shards = _shard_plan(mesh, b, dev)
 
     if mode == "optimize":
-        entry = cached_value_and_grad(
-            "fit_spectra_ragged", cfg, data,
-            targets.repeat_interleave(n_restarts, dim=0), jacobian=False,
-            density=log_density, key=("lbfgs", max_iter))
-        vg = entry.fn
-
-        def loss(q):
-            lp, g = vg(q)
-            return -lp, -g
-
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(b, n_restarts)))
-        res = run_lbfgs_restarts(loss, q0, max_iter=max_iter,
-                                 graphs=entry.graphs)
+
+        def solve(sh):
+            spec = slice(sh.start, sh.stop)
+            dat = _to_device(_spectra_rows(data, spec), sh.device)
+            entry = cached_value_and_grad(
+                "fit_spectra_ragged", cfg, dat,
+                targets[spec].to(sh.device).repeat_interleave(
+                    n_restarts, dim=0),
+                jacobian=False, density=log_density, key=("lbfgs", max_iter))
+            vg = entry.fn
+
+            def loss(q):
+                lp, g = vg(q)
+                return -lp, -g
+
+            return run_lbfgs_restarts(loss, q0[spec].to(sh.device),
+                                      max_iter=max_iter,
+                                      graphs=entry.graphs)
+
+        parts = run_shards(solve, shards)
+        res = parts[0] if len(parts) == 1 else MapResult(*(
+            torch.cat([r[i].to(dev) for r in parts])
+            for i in range(len(parts[0]))))
         mark("lbfgs")
         result = _map_result(cfg, data, res, z_scales, dists_norm, tau, eps,
                              first_basis)
     else:
-        phi_mon, phi_eval = _phi_mats(tau, eps, gamma_eval_tau, dt, dev)
         q0 = ravel(cfg, init_unconstrained(cfg, data, gen,
                                            batch_shape=(b, chains)))
         q0 = q0.reshape(b * chains, D).contiguous()
@@ -1465,26 +1735,32 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
                 form = "dense_rows"
         budget = ("warm-chees" if warm_start is not None else "chees",
                   chains, warmup, samples)
-        entry = _sampler_entry("fit_spectra_ragged", cfg, data,
-                               targets.repeat_interleave(chains, dim=0),
-                               run_cfg, form, density=log_density,
-                               budget=budget)
-        draws, info = _run_sampler(sampler, entry, q0, chains, warmup,
-                                   samples, run_cfg, gen, timing,
-                                   metric=metric, init_step_size=init_eps,
-                                   init_traj_time=init_traj)
+        job = _SampleJob(
+            tag="fit_spectra_ragged", sampler=sampler, cfg=cfg,
+            chains=chains, samples=samples, b_real=b_real, timing=timing,
+            flat=False, density=log_density, monitor_thin=0,
+            random_seed=random_seed, phi=(tau, eps, gamma_eval_tau, dt))
+        rows = run_shards(lambda sh: _ShardRows(
+            job, sh, data, targets, q0, gen, metric, init_eps, init_traj),
+            shards)
+        run_shards(lambda sh: rows[sh.position].sample(
+            run_cfg, warmup, form, budget), shards)
         mark("sample")
-        out = _summarize_blocks(cfg, data, draws, info, chains, samples,
-                                b_real, phi_mon, phi_eval)
-        _add_traj_time(out, info, b_real)
+        out, info = _gather_parts(run_shards(
+            lambda sh: rows[sh.position].summarize(), shards))
         mark("summary")
         result = _sampled_result(cfg, out, z_scales, dists_norm, tau, eps,
                                  first_basis)
         result.diagnostics["state_cfg"] = cfg
+        if sampler == "shmc":
+            result.diagnostics["shmc_route"] = _shmc_route(False, run_cfg)
+            result.diagnostics["precision"] = run_cfg.precision
         if timing:
             for k in _TIMING_KEYS:
                 if k in info:
                     result.diagnostics[k] = np.asarray(info[k])
+    if mesh is not None:
+        result.diagnostics["shard_layout"] = mesh.layout(b)
     if timing:
         result.diagnostics["phase_s"] = phases
     return result
@@ -1502,11 +1778,12 @@ def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
 # logp split-Rhat 1.55-1.87 while healthy cells range to 23).
 ESCALATE_ESS_BULK_MIN = 2.0
 
-# bf16x3 ('high') matmul gradient-discrepancy probe: relative L2 error of
-# the log-density gradient under bf16x3 vs true-f32 matmuls, evaluated at
-# the chains' final positions; recorded as
-# diagnostics['bf16x3_grad_err'] for every precision='high' fit on TPU.
-# Measured across the full committed-reference sweep
+# reduced-precision ('high') matmul gradient-discrepancy probe: relative
+# L2 error of the log-density gradient under the reduced products (bf16x3
+# on a TPU in the JAX package, tf32x3 on CUDA here) vs true-f32 ones,
+# evaluated at the chains' final positions; recorded under the JAX
+# package's key diagnostics['bf16x3_grad_err'] for every precision='high'
+# generic SHMC fit on a CUDA device. The JAX package measured across the full committed-reference sweep
 # (paper_batch_hmc_full_shmc.csv): the raw endpoint discrepancy is
 # CONFOUNDED by posterior sharpness (healthy noiseless cells reach 0.27
 # while the 2RC bf16x3-regression cells sit at 0.013-0.036), so it is NOT
@@ -1516,8 +1793,55 @@ ESCALATE_ESS_BULK_MIN = 2.0
 # — exactly where the 2RC n128-bf16x3 regression appeared,
 # paper_batch_hmc_2rc_n128.csv: 8/10 vs f32 10/10).
 BF16X3_GRAD_TOL = np.inf
-BF16X3_WARN_STEPS = 64            # n_steps above which bf16x3 warns
-BF16X3_WARN_SAMPLES = 400         # samples above which bf16x3 warns
+BF16X3_WARN_STEPS = 64            # n_steps above which 'high' warns
+BF16X3_WARN_SAMPLES = 400         # samples above which 'high' warns
+
+
+def tf32x3_grad_err(cfg, data, targets, q_state, density=None):
+    """The reduced-precision probe: per spectrum, the relative L2
+    discrepancy of grad(log density) under tf32x3 ('high') against true
+    fp32 ('highest') products, the max over the probe points (every
+    chain's final state, ``q_state`` (b, C, D)); autograd of ``density``
+    (default log_density) with the Jacobian, as the JAX package's probe
+    takes jax.grad. On the CPU both precisions are one product and the
+    probe reads 0. Returns (b,) numpy."""
+    b, chains, dim = q_state.shape
+    vg = posterior_value_and_grad(cfg, data,
+                                  targets.repeat_interleave(chains, dim=0),
+                                  jacobian=True, density=density)
+    q = q_state.reshape(b * chains, dim)
+    with precise_matmuls("high"):
+        _, g_hi = vg(q)
+    with precise_matmuls("highest"):
+        _, g_f = vg(q)
+    err = (torch.linalg.norm(g_hi - g_f, dim=1)
+           / (torch.linalg.norm(g_f, dim=1) + 1e-30))
+    return err.reshape(b, chains).max(dim=1).values.cpu().numpy()
+
+
+def _tf32x3_guard(diagnostics, cfg, data, targets, b, b_real, sh_cfg,
+                  samples):
+    """The JAX package's reduced-precision guard for a precision='high'
+    generic SHMC fit: ``diagnostics['bf16x3_grad_err']`` from the probe
+    at the chains' final states (an escalation gate only through
+    ``escalate_gate=dict(bf16x3_tol=...)``) and, outside the verified
+    screening regime (more than BF16X3_WARN_STEPS leapfrogs a draw or
+    BF16X3_WARN_SAMPLES draws), a warning. On CUDA the reduced form is
+    tf32x3."""
+    qp = torch.as_tensor(_pad_rows(np.asarray(diagnostics["state_q"]), b),
+                         device=targets.device).to(targets.dtype)
+    err = tf32x3_grad_err(cfg, data, targets, qp)[:b_real]
+    diagnostics["bf16x3_grad_err"] = err
+    if sh_cfg.n_steps > BF16X3_WARN_STEPS or samples > BF16X3_WARN_SAMPLES:
+        warnings.warn(
+            f"precision='high' (tf32x3 matmuls on CUDA) at n_steps="
+            f"{sh_cfg.n_steps}/samples={samples} is outside the verified "
+            "screening regime: on sharp posteriors the reduced-precision "
+            "arm cost the JAX package 0.01-0.02*Rp at long trajectories "
+            "(the 2RC n128 regression, 8/10 vs f32 10/10); use "
+            "SHMCConfig(precision='highest') for final runs (measured grad "
+            f"discrepancy p50 {float(np.median(err)):.1e}, max "
+            f"{float(err.max()):.1e})")
 
 
 ESCALATE_LOGP_GAP = 100.0         # nats; stuck-chain detector, active at
@@ -1738,18 +2062,85 @@ def ridge_fit_spectra_batch(frequencies, Z_batch, basis_freq=None,
     ``diagnostics['weights_re'/'weights_im']`` (B, N) in the caller's
     point order (small values mark outliers).
 
-    Not ported: ``mesh`` (item 12) raises."""
+    ``mesh``: every shard fits its contiguous range of spectra on its
+    device (its own A from the quadrature kernel; a per-spectrum weights
+    array goes with its spectra) and the results join in order, with
+    ``diagnostics['shard_layout']``."""
     if hyper_weights and hyper_lambda:
         raise ValueError("hyper_lambda and hyper_weights fits cannot be "
                          "combined; pass hyper_lambda=False")
     if hyper_weights and cv_lambdas is not None:
         raise ValueError("cv_lambdas is not supported with hyper_weights")
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
-                                  "item 12)")
-    dev = resolve_device(device)
-    dt = resolve_dtype(dtype)
+    kw = dict(basis_freq=basis_freq, epsilon=epsilon, penalty=penalty,
+              hyper_lambda=hyper_lambda, hl_beta=hl_beta, lambda_0=lambda_0,
+              reg_ord=reg_ord, nonneg=nonneg, max_iter=max_iter, xtol=xtol,
+              basis=basis, dtype=dtype, cv_lambdas=cv_lambdas,
+              hyper_weights=hyper_weights, hw_beta=hw_beta)
     Z_batch = np.asarray(Z_batch)
+    b = Z_batch.shape[0]
+    if mesh is None:
+        result, n_boundary = _ridge_rows(frequencies, Z_batch, weights,
+                                         hw_wbar, resolve_device(device),
+                                         **kw)
+    else:
+        dev = resolve_mesh_device(mesh, device)
+
+        def rows(w, sh):
+            # a per-spectrum (B, N) weights array goes with its spectra
+            if np.ndim(w) == 2:
+                return np.asarray(w)[sh.start:sh.stop]
+            return w
+
+        shards = [sh for sh in mesh.shards(b) if sh.stop > sh.start]
+        parts = run_shards(lambda sh: _ridge_rows(
+            frequencies, Z_batch[sh.start:sh.stop], rows(weights, sh),
+            rows(hw_wbar, sh), sh.device, **kw), shards)
+        result = _join_results([r for r, _ in parts])
+        n_boundary = sum(n for _, n in parts)
+        result.diagnostics["shard_layout"] = mesh.layout(b)
+    if n_boundary:
+        warnings.warn(
+            f"Re-Im CV selected a boundary lambda for {n_boundary} "
+            "spectra; re-run with an expanded cv_lambdas range for an "
+            "accurate estimate.")
+    return result
+
+
+def _join_results(parts):
+    """The BatchFitResults of consecutive row ranges as one: the
+    per-spectrum fields and diagnostics joined in order, everything else
+    the first's."""
+    first = parts[0]
+    if len(parts) == 1:
+        return first
+
+    def cat(name):
+        vals = [getattr(p, name) for p in parts]
+        return None if vals[0] is None else np.concatenate(vals)
+
+    diag = {}
+    for k, v in first.diagnostics.items():
+        vals = [p.diagnostics[k] for p in parts]
+        if all(isinstance(x, np.ndarray) and x.ndim >= 1
+               and x.shape[0] == p.coef.shape[0]
+               for x, p in zip(vals, parts)):
+            diag[k] = np.concatenate(vals)
+        else:
+            diag[k] = v
+    return first._replace(coef=cat("coef"), r_inf=cat("r_inf"),
+                          inductance=cat("inductance"),
+                          gamma_lo=cat("gamma_lo"), gamma_hi=cat("gamma_hi"),
+                          z_scales=cat("z_scales"), diagnostics=diag)
+
+
+def _ridge_rows(frequencies, Z_batch, weights, hw_wbar, dev, basis_freq,
+                epsilon, penalty, hyper_lambda, hl_beta, lambda_0, reg_ord,
+                nonneg, max_iter, xtol, basis, dtype, cv_lambdas,
+                hyper_weights, hw_beta):
+    """ridge_fit_spectra_batch on the spectra ``Z_batch`` on ``dev``:
+    (result, the number of spectra whose CV chose a grid boundary)."""
+    n_boundary = 0
+    dt = resolve_dtype(dtype)
     f_order = np.argsort(np.asarray(frequencies, float))[::-1]
     frequencies = np.asarray(frequencies, float)[f_order]
     Z_batch = Z_batch[:, f_order]
@@ -1853,18 +2244,13 @@ def ridge_fit_spectra_batch(frequencies, Z_batch, basis_freq=None,
         diagnostics.update(cv_lambda=np.asarray(cv_lambdas, float)[idx],
                            cv_recv=recv, cv_imcv=imcv, cv_totcv=recv + imcv)
         n_boundary = int(np.sum((idx == 0) | (idx == len(grid) - 1)))
-        if n_boundary:
-            warnings.warn(
-                f"Re-Im CV selected a boundary lambda for {n_boundary} "
-                "spectra; re-run with an expanded cv_lambdas range for an "
-                "accurate estimate.")
     coefs = res.coef.cpu().numpy() * z_scales[:, None]
     diagnostics.update(n_iter=res.n_iter.cpu().numpy(),
                        converged=res.converged.cpu().numpy())
     return BatchFitResult(
         coef=coefs[:, 2:], r_inf=coefs[:, 0], inductance=coefs[:, 1] * 1e-4,
         gamma_lo=None, gamma_hi=None, z_scales=z_scales, tau=tau, epsilon=eps,
-        diagnostics=diagnostics, basis=basis)
+        diagnostics=diagnostics, basis=basis), n_boundary
 
 
 def _cv_errors(cfg, data, grid, A_re, A_im, T_re, T_im, solve_at):
@@ -1974,14 +2360,13 @@ def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
     ``['median_rel_resid']`` the median relative impedance residual of
     its fitted trajectory; with ``timing``, ``['phase_s']`` (setup /
     ridge / lbfgs / result seconds, closed by a device synchronize) and
-    ``['n_iter_rows']`` every row's iterations. ``mesh`` (item 12)
-    raises."""
+    ``['n_iter_rows']`` every row's iterations. ``mesh``: the ridge seed
+    runs sharded, the starts are drawn for the whole batch, and every
+    shard runs its cells' rows through L-BFGS on its device (its own A),
+    with ``diagnostics['shard_layout']``."""
     if drift_model not in DRIFT_MODELS:
         raise ValueError(f"Invalid drift_model {drift_model!r}. Options "
                          f"are {DRIFT_MODELS}")
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 "
-                                  "item 12)")
     frequencies = np.asarray(frequencies, float)
     times = np.asarray(times, float)
     if len(times) != len(frequencies):
@@ -1993,7 +2378,8 @@ def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
         distributions = {"DRT": {"kernel": "DRT", "dist_type": "series"}}
     if len(distributions) != 1:
         raise ValueError("drift fits support a single distribution")
-    dev = resolve_device(device)
+    dev = (resolve_device(device) if mesh is None
+           else resolve_mesh_device(mesh, device))
     dt = resolve_dtype(dtype)
     mark, phases = _phase_clock(timing, dev)
     Z_batch, b_real = _pad_pow2(Z_batch)
@@ -2022,12 +2408,19 @@ def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
               symmetry=info.get("symmetry", "planar"),
               bc=info.get("bc", "transmissive"), ct=info["ct"],
               k_ct=info.get("k_ct", None), **f64)
-    A_re = construct_A(frequencies, "real", **kw)
-    A_im = construct_A(frequencies, "imag", **kw)
-    # the mode-scaled L stack of the single-spectrum drift fit
-    L = torch.stack([1.5 * s * construct_L(f_coll, tau=tau, basis=basis,
-                                           epsilon=eps, order=o, **f64)
-                     for o, s in ((0, 0.24), (1, 0.16), (2, 0.08))])
+
+    def matrices(device):
+        # A from the quadrature kernel on each device of a mesh; the
+        # mode-scaled L stack of the single-spectrum drift fit
+        dkw = dict(kw, device=device)
+        L = torch.stack([1.5 * s * construct_L(
+            f_coll, tau=tau, basis=basis, epsilon=eps, order=o,
+            dtype=torch.float64, device=device)
+            for o, s in ((0, 0.24), (1, 0.16), (2, 0.08))])
+        return (construct_A(frequencies, "real", **dkw),
+                construct_A(frequencies, "imag", **dkw), L)
+
+    A_re, A_im, L = matrices(dev)
 
     # scale with the normalized distribution so an under-specified DDT
     # gets the 'blocking' default the Inverter applies
@@ -2055,7 +2448,7 @@ def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
         rr = ridge_fit_spectra_batch(
             frequencies, Z_batch, basis_freq=f_coll, penalty="integral",
             hyper_lambda=True, lambda_0=1.0, hl_beta=5.0, weights="modulus",
-            basis=basis, dtype=dt, device=dev)
+            basis=basis, dtype=dt, device=dev, mesh=mesh)
         x_r = rr.coef / z_scales[:, None]
         rinf_r = np.clip(rr.r_inf / z_scales, 1e-6, None)
         induc_r = np.clip(rr.inductance / z_scales, 1e-10, None)
@@ -2078,28 +2471,51 @@ def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
         q0 = torch.cat([q0, ravel_drift(cfg, init_drift_params(
             cfg, data, gen, batch_shape=(b, n_restarts)))], dim=1)
     rows = q0.shape[1]
-    entry = _drift_loss("drift_fit_spectra_batch", cfg, data._replace(
-        Z=data.Z.repeat_interleave(rows, dim=0)), key=("lbfgs", max_iter))
-    res = run_lbfgs(entry.fn, q0.reshape(b * rows, -1), max_iter=max_iter,
-                    graphs=entry.graphs)
+
+    def solve(sh):
+        # each shard's rows of (cell, start) through L-BFGS on its device,
+        # the cells' winning rows, their drift trajectories and residuals
+        d = sh.device
+        dat = data
+        if d != dev:
+            dat = drift_data(frequencies, times, *matrices(d), targets, tau,
+                             sigma_min, inductance_scale, min_tau_drift,
+                             max_tau_drift, dt, d)
+        dat = dat._replace(Z=dat.Z[sh.start:sh.stop])
+        bs = sh.stop - sh.start
+        entry = _drift_loss("drift_fit_spectra_batch", cfg, dat._replace(
+            Z=dat.Z.repeat_interleave(rows, dim=0)), key=("lbfgs", max_iter))
+        res = run_lbfgs(entry.fn, q0[sh.start:sh.stop].to(d).reshape(
+            bs * rows, -1), max_iter=max_iter, graphs=entry.graphs)
+        pick = (torch.arange(bs, device=d) * rows
+                + drift_pick(res.value.reshape(bs, rows)))
+        c = constrain_drift(cfg, dat, unravel_drift(cfg, res.params[pick]))
+        # reconstruction quality of the fitted drift trajectory (the
+        # single-spectrum drift test's gate)
+        pred = predict_drift_target(cfg, dat, c)
+        zmod = torch.sqrt(dat.Z[:, :n] ** 2 + dat.Z[:, n:] ** 2)
+        resid = torch.sqrt((pred[:, :n] - dat.Z[:, :n]) ** 2
+                           + (pred[:, n:] - dat.Z[:, n:]) ** 2)
+        med = _median_last(resid / torch.clamp_min(zmod, 1e-30))
+        return ({k: v.cpu() for k, v in c.items()}, res.value[pick].cpu(),
+                res.n_iter[pick].cpu(), med.cpu(),
+                res.n_iter.reshape(bs, rows).cpu())
+
+    parts = run_shards(solve, _shard_plan(mesh, b, dev))
     mark("lbfgs")
-    pick = (torch.arange(b, device=dev) * rows
-            + drift_pick(res.value.reshape(b, rows)))
-    c = constrain_drift(cfg, data, unravel_drift(cfg, res.params[pick]))
-    # reconstruction quality of the fitted drift trajectory (the single-
-    # spectrum drift test's gate)
-    pred = predict_drift_target(cfg, data, c)
-    zmod = torch.sqrt(data.Z[:, :n] ** 2 + data.Z[:, n:] ** 2)
-    resid = torch.sqrt((pred[:, :n] - data.Z[:, :n]) ** 2
-                       + (pred[:, n:] - data.Z[:, n:]) ** 2)
-    med_resid = _median_last(resid / torch.clamp_min(zmod, 1e-30))
+
+    def cat(i):
+        return torch.cat([p[i] for p in parts])
+
+    c = {k: torch.cat([p[0][k] for p in parts]) for k in parts[0][0]}
+    value, n_it_all, med_resid, n_iter_rows = cat(1), cat(2), cat(3), cat(4)
 
     def host(t):
         return t[:b_real].cpu().numpy()
 
     c = {k: host(v) for k, v in c.items()}
-    value = host(res.value[pick])
-    n_it = host(res.n_iter[pick]).astype(np.float32)
+    value = host(value)
+    n_it = host(n_it_all).astype(np.float32)
     med_resid = host(med_resid)
     z_scales = z_scales[:b_real]
     mark("result")
@@ -2123,10 +2539,11 @@ def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
     diagnostics = {"value": value, "n_iter": n_it,
                    "median_rel_resid": med_resid,
                    "drift_model": drift_model, "drift": drift}
+    if mesh is not None:
+        diagnostics["shard_layout"] = mesh.layout(b)
     if timing:
         diagnostics["phase_s"] = phases
-        diagnostics["n_iter_rows"] = res.n_iter.reshape(b, rows)[
-            :b_real].cpu().numpy()
+        diagnostics["n_iter_rows"] = host(n_iter_rows)
     return BatchFitResult(
         coef=drift.get(static_key, drift.get("x0")),
         r_inf=drift["Rinf_0"], inductance=drift["induc"],

@@ -30,9 +30,17 @@ tenth of the card, keeps a dozen such trees and evicts well before the
 fits' own tensors run short; 64 entries bound the runners' host-side
 buffers. Evicting an entry drops its graphs and returns their pools to
 the card. On the CPU the runners hold buffers and no graphs.
+
+A mesh fit runs its shards in host threads (parallel/mesh.py). They
+share the cache under one lock; shards that share a device (the CPU's
+virtual shards) each key their entries under their own ``scope`` tag, so
+that no two threads bind one runner's buffers at once.
 """
 
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -42,24 +50,72 @@ MAX_POOL_BYTES = 8 << 30
 
 _CACHE: dict = {}
 _COUNTS = {"hits": 0, "misses": 0, "evictions": 0}
+_LOCK = threading.RLock()
+_LOCAL = threading.local()
+
+
+@contextmanager
+def scope(tag):
+    """Key every entry this thread looks up inside the block under
+    ``tag`` too (None: no tag), a mesh shard's position where several
+    shards share one device."""
+    prev = getattr(_LOCAL, "tag", None)
+    _LOCAL.tag = tag
+    try:
+        yield
+    finally:
+        _LOCAL.tag = prev
+
+
+@contextmanager
+def precise_matmuls(precision: str = "highest"):
+    """Run the block's float32 posterior products at ``precision`` in
+    this thread (the counterpart of the JAX package's precise_matmuls and
+    its SHMCConfig-aware ``_cfg_matmul_precision``): 'highest' is true
+    fp32, 'high' the tf32x3 product of ``_numerics.tf32x3_matmul`` on a
+    CUDA device (on the CPU, which has no TF32 unit, it equals 'highest'
+    bit for bit). A graph captured in the block keeps the products it was
+    captured with, so the precision is part of every cache key made in
+    it."""
+    if precision not in ("highest", "high"):
+        raise ValueError(f"precision must be 'highest' or 'high', not "
+                         f"{precision!r}")
+    prev = matmul_precision()
+    _LOCAL.precision = precision
+    try:
+        yield
+    finally:
+        _LOCAL.precision = prev
+
+
+def matmul_precision() -> str:
+    """This thread's posterior matmul precision ('highest' by default)."""
+    return getattr(_LOCAL, "precision", "highest")
 
 
 def cached_program(key, builder):
-    """The entry under ``key``, built by ``builder()`` on a miss. Before a
-    new entry goes in, the oldest are evicted while the cache holds
-    ``MAX_ENTRIES`` entries or its graph pools more than
+    """The entry under ``key`` (and this thread's ``scope`` tag and, when
+    it is not 'highest', its matmul precision), built by ``builder()`` on
+    a miss. Before a new entry goes in, the oldest are evicted while the
+    cache holds ``MAX_ENTRIES`` entries or its graph pools more than
     ``MAX_POOL_BYTES``."""
-    entry = _CACHE.get(key)
-    if entry is not None:
-        _COUNTS["hits"] += 1
+    tag = getattr(_LOCAL, "tag", None)
+    if tag is not None:
+        key = tuple(key) + (("scope", tag),)
+    if matmul_precision() != "highest":
+        key = tuple(key) + (("precision", matmul_precision()),)
+    with _LOCK:
+        entry = _CACHE.get(key)
+        if entry is not None:
+            _COUNTS["hits"] += 1
+            return entry
+        _COUNTS["misses"] += 1
+        while _CACHE and (len(_CACHE) >= MAX_ENTRIES
+                          or pool_bytes() > MAX_POOL_BYTES):
+            _evict(next(iter(_CACHE)))
+        entry = builder()
+        _CACHE[key] = entry
         return entry
-    _COUNTS["misses"] += 1
-    while _CACHE and (len(_CACHE) >= MAX_ENTRIES
-                      or pool_bytes() > MAX_POOL_BYTES):
-        _evict(next(iter(_CACHE)))
-    entry = builder()
-    _CACHE[key] = entry
-    return entry
 
 
 def _evict(key):
@@ -75,10 +131,11 @@ def _evict(key):
 def clear():
     """Drop every entry (their graph pools go back to the card) and zero
     the counters."""
-    while _CACHE:
-        _evict(next(iter(_CACHE)))
-    for k in _COUNTS:
-        _COUNTS[k] = 0
+    with _LOCK:
+        while _CACHE:
+            _evict(next(iter(_CACHE)))
+        for k in _COUNTS:
+            _COUNTS[k] = 0
 
 
 def _entry_pools(entry):

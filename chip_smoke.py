@@ -123,7 +123,8 @@ line is printed):
      DKW ECDF violation; float64 card-vs-CPU parity of the marginal's
      value and gradient and of one NUTS transition of it as CUDA graphs;
      (b) the CLI as a user runs it (python -m bayes_drt_tpu_torch fit, a
-     subprocess each) on 1,024 noisy ZARC CSVs on two grids, four Gamry
+     subprocess each, the five at once) on 1,024 noisy ZARC CSVs on two
+     grids, four Gamry
      .DTA files and a corrupt file: sample mode (the defaults), optimize,
      ridge with and without --ridge-cv, --peaks on 8 files, gated on exit
      codes, one Gout file a spectrum, the corrupt file's load_error row
@@ -161,8 +162,23 @@ line is printed):
      on phase 13's spectrum over 8 seeds, every JAX Inverter sampled
      gate's figure printed, ess_min > 2 a fit, the medians of the rest
      within the JAX package's own 90th percentiles over 32 seeds.
-  18. one JSON line listing both kernels with their launches (phases 4,
-     6, 7, 10 to 17) and times; K2's bound counts the function's
+  18. the mesh and the remaining sampler arms: (a) the main path (B=1024, nothing cut)
+     through make_mesh() over the one card, its shard_layout printed,
+     the five gates and 400 K1 launches, bit for bit phase 4's meshless
+     fit; (b) MAP, ridge, the Re-Im CV, drift and ragged MAP at small
+     sizes on the one-card mesh against their meshless results, bit for
+     bit; (c) SHMCConfig(traj_store=True) on phase 12's 256
+     Series-Parallel spectra at 4 x (150 + 100) with phase 12's gates,
+     its one shard run in the mesh's worker thread (a tagged shard on
+     cuda:0: thread-local captures, the device set in the thread), as is
+     a second run of (a), bit for bit phase 4 too;
+     (d) NUTSConfig(fused_draws=True) md8 on 256 of the main path's rows
+     without adaptation: it runs the flat form, so the same trees and
+     draws; (e) the precision A/B: phase 12's fit at precision='high'
+     (tf32x3) against phase 12's own run, phase 12's gates, seconds a
+     draw and bf16x3_grad_err (the 'fast' preset stays at 'highest').
+  19. one JSON line listing both kernels with their launches (phases 4,
+     6, 7, 10 to 18) and times; K2's bound counts the function's
      least fp64 work a node, and the count its compiled loop issues
      (cuobjdump -sass) is printed beside it.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -199,18 +215,19 @@ ESC_WARMUP = 100
 ESC_SAMPLES = 100
 NUTS_DEPTH = 8            # the refit's max_tree_depth
 # phase 9's float64 NUTS transition: the card runs the main path's 4,096
-# rows, the CPU reference 512 of them (rows 8 i + i % 8, every chain
-# index alike) since the ChEES phase came (1,024 before, one a spectrum,
-# whose CPU side took 8.70 s on a slow host, the whole smoke then
-# 1,112.9 s; all 4,096 until the SBC and CLI phase came, 26.4 s)
-PARITY_CPU_ROWS = 512
+# rows, the CPU reference 64 of them (rows 64 i + i % 64, every chain
+# index alike) since the CLI commands run one after another (128 since
+# the mesh phase came, their CPU side 11.70 s on a fast host; 512 since
+# the ChEES phase, 1,024 before, one a spectrum, whose CPU side took 8.70
+# s on a slow host; all 4,096 until the SBC and CLI phase came, 26.4 s)
+PARITY_CPU_ROWS = 64
 # the default call's phase: the main path's B, and a budget cut from the
 # default 4 x (500 + 500) to keep the smoke's time (4 x (60 + 20) until
 # the generic SHMC and ragged phase came, 4 x (30 + 10) until the SBC
 # and CLI phase came, 4 x (20 + 10) until the resume phase came)
 B_DEFAULT = B
-DEFAULT_WARMUP = 10
-DEFAULT_SAMPLES = 5
+DEFAULT_WARMUP = 6          # 4 x (10+5) until the mesh phase came
+DEFAULT_SAMPLES = 4
 
 # the MAP phase: the default form's caps and restarts, the production
 # form's cap, its gates (of Rp; p90 is the JAX MAP tests' per-spectrum
@@ -218,12 +235,16 @@ DEFAULT_SAMPLES = 5
 # the iterates themselves: L-BFGS amplifies the two devices' last-bit
 # differences by ~1e2 every 10 iterations on this posterior)
 MAP_ITER = 2000
+# phase 10's caps since the mesh phase came: the default form's 2000 and
+# the production form's 1500 halved (their figures read 0.40% and 0.34%
+# Rp against the 3% bar, the polish running its 100 iterations either way)
+MAP_DEFAULT_ITER = 1000
 MAP_RESTARTS = 2
-MAP_RIDGE_ITER = 1500
+MAP_RIDGE_ITER = 750
 MAP_GATE_RMSE = 0.03
 MAP_GATE_P90 = 0.08
-MAP_PARITY_B = 8
-MAP_PARITY_ITER = 200
+MAP_PARITY_B = 4            # 8 until the mesh phase came
+MAP_PARITY_ITER = 100       # 200 until the mesh phase came
 MAP_PARITY_SHORT = 25
 
 # the Series-Parallel phase: DRT + TP-DDT (x_scale 0.8) of the extended
@@ -246,7 +267,7 @@ SP_B_SMALL = 64
 # the CPU side of 1,024 rows was most of the phase's ~65 s of parity; 256
 # rows until the ChEES phase came, the whole smoke then 1,149.5 s on a
 # slow host)
-SP_PARITY_NUTS_B = 32
+SP_PARITY_NUTS_B = 16       # 32 until the mesh phase came
 SP_SMALL_ITER = 1000
 SP_GATE_Z = 0.02          # median |Z_hat - Z_true| / |Z_true|
 SP_GATE_DIV = 0.05        # median divergence rate
@@ -284,7 +305,8 @@ INV_TOL_HYPER_A = 1e-7
 # float64 parity of the Re-Im CV runs on the default grid's values from
 # 1e-7: in float64 the QPs of the smallest lambdas pivot to their
 # 2,000-iteration cap (about 70 s a spectrum on the CPU side)
-INV_CV_PARITY_GRID = np.logspace(-7, 5, 25)
+# one point a decade since the mesh phase came (25 points before)
+INV_CV_PARITY_GRID = np.logspace(-7, 5, 13)
 INV_RIDGE_CASES = {
     "default": {}, "huang": dict(preset="Huang"),
     "ciucci_cv": dict(preset="Ciucci", cv_lambdas=INV_CV_PARITY_GRID),
@@ -320,7 +342,7 @@ INV_GATE_CV_P90 = 1.15 * INV_JAX_CV["p90_over_rp"]
 INV_QP_B = 2
 INV_QP_GRID = np.logspace(-10, -8, 5)
 INV_QP_TOL = 1e-8
-INV_PARITY_B = 8
+INV_PARITY_B = 4            # 8 until the mesh phase came
 # the forced single-parallel escalation at 4 x (100+100): the JAX
 # package's own median Z residual on these 16 spectra reads 0.0347 at
 # 4 x (50+50), over the 0.02 bar, and 0.0155 at 4 x (100+100) (float32
@@ -339,9 +361,12 @@ INV_NUTS_SAMPLES = 20
 # rhat_max printed
 INV_NUTS_TEST_WARMUP = 120
 # the JAX test's 120 draws until the resume phase came (the fit then 107
-# to 129 s of the smoke's 1,200); its warmup, which sets the adaptation
-# the gates read, is kept
-INV_NUTS_TEST_SAMPLES = 60
+# to 129 s of the smoke's 1,200), 60 until the mesh phase came (68.85 s);
+# its warmup, which sets the adaptation the gates read, is kept: the
+# port's own fits of this spectrum on the CPU (float32) read rhat_max
+# 2.71 at 2 x (120+40), 4.05 to 4.46 at (120+30) and 3.60 to 7.39 at
+# (90+30), against 2.85 at (120+60)
+INV_NUTS_TEST_SAMPLES = 40
 INV_GATE_RHAT_MAX = 5.0
 INV_GATE_ESS_MIN = 2.0
 
@@ -388,9 +413,13 @@ SBC_BINS = 16
 SBC_P_MIN = 0.005
 SBC_PARITY_ROWS = 64
 SBC_PARITY_NUTS_ROWS = 16
-# phase 15 (b): the CLI on a directory of 1,024 noisy ZARC spectra on two
-# grids (CSV), four Gamry .DTA files on the first grid and a corrupt file
-CLI_GRIDS = ((768, (6, -2, 81)), (256, (5, -1, 61)))
+# phase 15 (b): the CLI on a directory of noisy ZARC spectra on two grids
+# (CSV), four Gamry .DTA files on the first grid and a corrupt file: 384 +
+# 128 spectra since the sample command runs alone (768 + 256 before) and
+# the optimize command's L-BFGS cap 500 (the CLI's default 1500: its
+# figures read 0.35% and 0.84% Rp against the 3% and 8% bars at 1500)
+CLI_GRIDS = ((384, (6, -2, 81)), (128, (5, -1, 61)))
+CLI_MAP_ITER = 500
 CLI_DTA = 4
 CLI_PEAK_FILES = 8
 CLI_GATE_MAP_P90 = 0.08     # the JAX MAP tests' bar
@@ -428,7 +457,9 @@ WARM_MAIN_WARMUP = 75
 # a draw, RMSE 1.39% Rp against the 5% bar)
 WARM_NUTS_SAMPLES = 60
 RG_WARM_B = 64
-RG_WARM_COLD = (100, 150)   # the cold ragged fit the resume starts from
+# the cold ragged fit the resume starts from ((100, 150) until the mesh
+# phase came)
+RG_WARM_COLD = (100, 100)
 POOL_B = 64
 # warmup 150 and 100 draws until the ChEES phase came (the pooled fit then
 # 45.6 s of the smoke's 1,200, its trees saturated at 255 leaves, RMSE
@@ -444,7 +475,7 @@ DENSE_ROWS = 256
 # capturing md10's 1,023-leaf graphs cost more than the draws); the
 # longest tree of each run is printed
 DENSE_DEPTH = 8
-DENSE_PARITY_ROWS = 256
+DENSE_PARITY_ROWS = 128     # 256 until the mesh phase came
 
 # phase 17: ChEES-HMC on the main path's posterior (B, N=81, K=101,
 # D=211, ncp, 4 chains, the main path's 150 + 250, the default
@@ -468,8 +499,9 @@ CH_WARM_WARMUP = 30
 # paying the batch's largest leapfrog count, 87 a draw on average against
 # a row's 19.4 (NVIDIA H100 80GB HBM3, 700 W), and its RMSE 2.5% Rp
 # against the chained-refit bar of 9.2%; 100 draws in the first whole
-# smoke with this phase (1,149.5 s on a slow host)
-CH_WARM_SAMPLES = 60
+# smoke with this phase (1,149.5 s on a slow host), 60 until the mesh
+# phase came
+CH_WARM_SAMPLES = 30
 CH_PARITY_ROWS = 256
 # the spectra the CPU side reruns: 64 of the 256 rows (all 256 took 14.4
 # s on the CPU side of a slow host, the whole smoke then 1,108.8 s)
@@ -480,6 +512,16 @@ CH_PARITY_CPU_B = 16
 CH_PARITY_DRAWS = (3, 2)
 CH_INV_BUDGET = (120, 60)
 CH_INV_SEEDS = 8
+# phase 18: the mesh (one card), traj_store, fused_draws, precision='high'
+MESH_B = 16                 # (b): the small mesh-vs-meshless fits
+MESH_MAP_ITER = 100         # MAP without the polish
+MESH_RIDGE_B = 64
+MESH_CV_GRID = np.logspace(-6, 0, 5)   # the CV on MESH_B spectra
+MESH_DRIFT_B = 8
+MESH_DRIFT_ITER = 150
+STORE_BUDGET = (150, 100)   # (c): traj_store on phase 12's 256 spectra
+FUSED_B = 64                # (d): NUTS md8 rows = FUSED_B * CHAINS
+FUSED_NOADAPT = 5           # draws of the warmup=0 comparison
 # the JAX package's own Inverter ChEES fits of phase 13's spectrum at 2 x
 # CH_INV_BUDGET over random_seed 0 to 31 (float32 on the CPU,
 # scripts/jax_chees_reference.py inverter) miss the JAX Inverter tests'
@@ -1396,7 +1438,7 @@ def phase_map(card):
     tau = get_tau_basis(np.sort(freq)[::-1])
     gt = sim.reference_gamma("ZARC", tau)
     rp = np.trapezoid(gt, np.log(tau))
-    forms = {"default": {},
+    forms = {"default": dict(max_iter=MAP_DEFAULT_ITER),
              "ridge": dict(init_from_ridge=True, max_iter=MAP_RIDGE_ITER)}
     out, results = {}, {}
     drt_quad.launches = 0
@@ -1416,7 +1458,8 @@ def phase_map(card):
         d = res.diagnostics
         n_it, n_lbfgs = d["n_iter"], d["n_iter_lbfgs"]
         out[name] = {
-            "B": B, "rows": B * (1 if kw else MAP_RESTARTS),
+            "B": B,
+            "rows": B * (1 if kw.get("init_from_ridge") else MAP_RESTARTS),
             "max_iter": kw.get("max_iter", MAP_ITER), "wall_s": wall,
             "phase_s": d["phase_s"], "lbfgs_iters": int(n_lbfgs.max()),
             "polish_iters_max": int((n_it - n_lbfgs).max()),
@@ -1847,13 +1890,14 @@ def sp_parity(card, freq, dists, zb, sampled):
     tau = 1.0 / (2 * np.pi * basis)
     worst, worst_part = 0.0, 0.0
     t0 = time.perf_counter()
+    f_ddt = freq[::2]       # all 81 points until the mesh phase came
     eps = 1.0 / np.mean(np.diff(np.log(tau)))
     for bc, sym in (("transmissive", "planar"), ("blocking", "planar"),
                     ("blocking", "spherical")):
         for dist_type in ("series", "parallel"):
             for ct in (False, True):
                 a = {dev: [construct_A(
-                    freq, part, tau=tau, epsilon=eps, kernel="DDT",
+                    f_ddt, part, tau=tau, epsilon=eps, kernel="DDT",
                     dist_type=dist_type, symmetry=sym, bc=bc, ct=ct,
                     k_ct=2.5 if ct else None, dtype=torch.float64,
                     device=dev).cpu() for part in ("real", "imag")]
@@ -1867,7 +1911,8 @@ def sp_parity(card, freq, dists, zb, sampled):
                     err = float((c_ - h_).abs().max())
                     worst = max(worst, err / big)
                     worst_part = max(worst_part, err / float(h_.abs().max()))
-    print(f"parity ddt A: 12 configurations x 2 parts, N=81, K=81, float64,"
+    print(f"parity ddt A: 12 configurations x 2 parts, N={len(f_ddt)}, "
+          f"K=81, float64,"
           f" largest |card - cpu| / max|A' + j A''| {worst:.3e} (of the "
           f"part's own largest entry: {worst_part:.3e}) "
           f"({time.perf_counter() - t0:.1f} s) [{card}]")
@@ -2010,6 +2055,7 @@ def generic_sp_fit(card, freq, dists, z_true, zb, tau, truth, failed):
                divergence_under_nuts_bar=div < SP_GATE_DIV)
     print("generic shmc series-parallel: " + json.dumps(rec) + f" [{card}]")
     failed += [f"generic_sp.{k}" for k, v in gates.items() if not v]
+    KEEP["generic_sp"] = rec
     return res
 
 
@@ -3346,26 +3392,33 @@ def read_csv_rows(path):
         return list(csv.DictReader(f))
 
 
-def run_cli(label, argv, out):
-    """``python -m bayes_drt_tpu_torch fit ...`` in a subprocess from the
-    repo root; returns (seconds, {bucket: (spectra, seconds)})."""
+def start_cli(argv, out):
+    """``python -m bayes_drt_tpu_torch fit ...`` started in a subprocess
+    from the repo root; returns (process, start time)."""
     cmd = [sys.executable, "-m", "bayes_drt_tpu_torch", "fit", *argv,
            "--out", out]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
-        __file__)), capture_output=True, text=True, timeout=600)
+    return (subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter())
+
+
+def finish_cli(label, started, note=""):
+    """Wait for a command of ``start_cli``; returns (seconds, {bucket:
+    (spectra, seconds)}), raising on a nonzero exit code."""
+    proc, t0 = started
+    _, err = proc.communicate(timeout=900)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        print(proc.stderr[-4000:])
+        print(err[-4000:])
         raise AssertionError(f"cli {label}: exit code {proc.returncode}")
     buckets = {}
-    for line in proc.stderr.splitlines():
+    for line in err.splitlines():
         if line.startswith("bucket "):
             head, rest = line.split(":", 1)
             n = int(rest.split("spectra")[0])
             secs = float(rest.split(" fit in ")[1].split("s")[0])
             buckets[int(head.split()[1])] = (n, secs)
-    print(f"cli {label}: {wall:.1f} s for the command; " + "; ".join(
+    print(f"cli {label}: {wall:.1f} s for the command{note}; " + "; ".join(
         f"bucket {b}: {n} spectra in {s:.2f} s, "
         f"{n / (s / 60.0):.0f} spectra/min" for b, (n, s) in
         sorted(buckets.items())))
@@ -3455,8 +3508,9 @@ def cli_runs(card, failed):
     """(b) the CLI as a user runs it, on the inputs of write_cli_inputs:
     sample mode (the defaults, 4 x (250+250), SHMC), optimize, ridge with
     and without --ridge-cv, --peaks on CLI_PEAK_FILES files, each a
-    subprocess; then the traced bucket. Returns the commands' seconds and
-    the traced fit's launches."""
+    subprocess: sample alone, then the other four at once; then the
+    traced bucket. Returns the commands' seconds and the traced fit's
+    launches."""
     import tempfile
     secs = {}
     with tempfile.TemporaryDirectory() as root:
@@ -3465,12 +3519,31 @@ def cli_runs(card, failed):
         grids = write_cli_inputs(data)
         n_files = sum(len(stems) for _, stems in grids.values())
         paths = [os.path.join(data, "*.csv"), os.path.join(data, "*.DTA")]
-        for label, extra in (("sample", []), ("optimize", ["--mode",
-                                                           "optimize"]),
-                             ("ridge", ["--mode", "ridge"]),
-                             ("ridge-cv", ["--mode", "ridge", "--ridge-cv"])):
+        commands = {"sample": paths, "optimize": paths + [
+            "--mode", "optimize", "--max-iter", str(CLI_MAP_ITER)],
+            "ridge": paths + ["--mode", "ridge"],
+            "ridge-cv": paths + ["--mode", "ridge", "--ridge-cv"],
+            "peaks": [os.path.join(data, s_ + ".csv")
+                      for s_ in grids[0][1][:CLI_PEAK_FILES]]
+            + ["--mode", "ridge", "--peaks"]}
+        # the sample command (the main path) alone on the card: its
+        # seconds are a user's. The other four at once, each its own
+        # process: their seconds overlap, so they are not a user's and
+        # not comparable with runs that ran them one after another (all
+        # five one after another took 146 s, the smoke 1,133 s: too
+        # close to the limit on a slow host)
+        secs["sample"], _ = finish_cli("sample", start_cli(
+            commands["sample"], os.path.join(root, "sample")))
+        rest = [label for label in commands if label != "sample"]
+        started = {label: start_cli(commands[label],
+                                    os.path.join(root, label))
+                   for label in rest}
+        note = (f" (at once with the other {len(rest) - 1}: not a user's "
+                "seconds)")
+        for label in rest:
+            secs[label], _ = finish_cli(label, started[label], note)
+        for label in ("sample", "optimize", "ridge", "ridge-cv"):
             out = os.path.join(root, label)
-            secs[label], _ = run_cli(label, paths + extra, out)
             summary = cli_check_outputs(label, out, failed, n_files)
             figs = {}
             for g, (freq, stems) in grids.items():
@@ -3496,12 +3569,7 @@ def cli_runs(card, failed):
                   f"{json.dumps(figs)} -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"cli {label} gates")
-        out = os.path.join(root, "peaks")
-        peak_files = [os.path.join(data, s + ".csv")
-                      for s in grids[0][1][:CLI_PEAK_FILES]]
-        secs["peaks"], _ = run_cli("ridge --peaks", peak_files + [
-            "--mode", "ridge", "--peaks"], out)
-        summary = read_csv_rows(os.path.join(out, "summary.csv"))
+        summary = read_csv_rows(os.path.join(root, "peaks", "summary.csv"))
         n_peaks = [int(r["n_peaks"]) for r in summary]
         rel = [float(r["peak_fit_rmse_rel"]) for r in summary]
         print(f"cli peaks: n_peaks {n_peaks}, peak_fit_rmse_rel max "
@@ -4256,6 +4324,359 @@ def phase_chees(card):
     return launches
 
 
+class ThreadedShards:
+    """make_mesh() over the one card with its one shard tagged, so that
+    run_shards runs it in the mesh's worker thread, as each shard of a
+    multi-card mesh runs (the device set in the thread, thread-local
+    graph captures, the shard's own cache scope), and not inline in the
+    caller's thread; records the threads the shards ran in."""
+
+    def __init__(self, device=None):
+        self.device = device
+        from bayes_drt_tpu_torch.parallel import mesh as mesh_mod
+
+        class Tagged(mesh_mod.DeviceMesh):
+            def shards(self, b):
+                return [sh._replace(tag=0) for sh in super().shards(b)]
+
+        base = mesh_mod.make_mesh(device=self.device)
+        self.mesh = Tagged(base.devices, base.ids)
+        self.threads = []
+        self._mod = mesh_mod
+
+    def __enter__(self):
+        import threading
+        inner = self._orig = self._mod._in_shard
+
+        def recorded(fn, shard, n_threads):
+            self.threads.append(threading.current_thread().name)
+            return inner(fn, shard, n_threads)
+
+        self._mod._in_shard = recorded
+        return self.mesh
+
+    def __exit__(self, *exc):
+        self._mod._in_shard = self._orig
+
+    def in_workers(self) -> bool:
+        return bool(self.threads) and all(
+            t.startswith("mesh-shard") for t in self.threads)
+
+
+def mesh_main_path(card, failed):
+    """(a) The main path through make_mesh() over the one card, its one
+    shard inline and then in the mesh's worker thread (ThreadedShards),
+    each held bit for bit to phase 4's meshless fit (same call, same
+    seed) and to the five gates. Returns their launches."""
+    import torch
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    from bayes_drt_tpu_torch.parallel import fit_spectra_batch, make_mesh
+    freq, Zb, res0, tau, gt, rp = KEEP["main"]
+    cfg = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS,
+                     eps_quantile=EPS_QUANTILE)
+    total = {"quad": 0, "traj": 0}
+    for form in ("inline", "threaded"):
+        threaded = ThreadedShards()
+        drt_quad.launches = 0
+        traj_fused.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if form == "inline":
+            mesh = make_mesh()
+            res = fit_spectra_batch(
+                freq, Zb, mode="sample", chains=CHAINS, warmup=WARMUP,
+                samples=SAMPLES, random_seed=1, ncp=True, sampler="shmc",
+                shmc_cfg=cfg, gamma_eval_tau=tau, dtype=np.float32,
+                timing=True, mesh=mesh)
+        else:
+            with threaded as mesh:
+                res = fit_spectra_batch(
+                    freq, Zb, mode="sample", chains=CHAINS, warmup=WARMUP,
+                    samples=SAMPLES, random_seed=1, ncp=True,
+                    sampler="shmc", shmc_cfg=cfg, gamma_eval_tau=tau,
+                    dtype=np.float32, timing=True, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+        for k in total:
+            total[k] += launches[k]
+        d, d0 = res.diagnostics, res0.diagnostics
+        flagged = int(d["escalated"].sum())
+        want = {"quad": 2 + (4 if flagged else 0), "traj": WARMUP + SAMPLES}
+        skip = ("phase_s", "traj_ms", "draw_s", "capture_s", "refit_s",
+                "state_cfg", "dist_geometry", "shard_layout")
+        differ = [f for f in ("coef", "r_inf", "inductance", "gamma_lo",
+                              "gamma_hi", "z_scales")
+                  if not np.array_equal(getattr(res, f), getattr(res0, f))]
+        differ += [k for k in d0 if k not in skip and isinstance(
+            d0[k], np.ndarray) and not np.array_equal(d[k], d0[k])]
+        rmse, p90, cov = gamma_figures(res, tau, gt, rp)
+        gates = {"rmse": rmse < GATE_RMSE, "p90": p90 < GATE_P90,
+                 "coverage": cov > GATE_COVERAGE,
+                 "min_ess_med": float(np.median(d["min_ess"]))
+                 > GATE_MIN_ESS,
+                 "logp_rhat_med": float(np.median(d["logp_rhat"]))
+                 < GATE_LOGP_RHAT,
+                 "bitwise_phase4": not differ,
+                 "launches": launches == want,
+                 "layout": d["shard_layout"] == ((0, 0, B),)}
+        if form == "threaded":
+            gates["in_worker_thread"] = threaded.in_workers()
+        print(f"mesh main path, {form}: " + json.dumps({
+            "mesh": repr(mesh), "shard_layout": d["shard_layout"],
+            "shard_threads": threaded.threads,
+            "wall_s": wall, "phase_s": d["phase_s"], "rmse_over_rp": rmse,
+            "p90_over_rp": p90, "coverage": cov, "escalated": flagged,
+            "launches": launches, "expected": want,
+            "differ_from_phase4": differ,
+            "gates": {k: bool(v) for k, v in gates.items()}})
+            + f" [{card}]")
+        failed += [f"mesh_main.{form}.{k}" for k, v in gates.items()
+                   if not v]
+    return total
+
+
+def mesh_small_fits(card, failed):
+    """(b) MAP (no polish), ridge (plain, and the Re-Im CV on a 5-point
+    grid), drift and ragged MAP, each at a small size on a one-device
+    mesh against the same call without one: equal bit for bit, the
+    layout one range on device 0."""
+    import torch
+    from bayes_drt_tpu_torch import sim
+    from bayes_drt_tpu_torch.parallel import (drift_fit_spectra_batch,
+                                              fit_spectra_batch,
+                                              fit_spectra_ragged, make_mesh,
+                                              ridge_fit_spectra_batch)
+    mesh = make_mesh()
+    freq, Zb = sim.make_benchmark_batch(MESH_B, circuit="ZARC",
+                                        noise_level=0.0025, seed=7)
+    _, Zr = sim.make_benchmark_batch(MESH_RIDGE_B, circuit="ZARC",
+                                     noise_level=0.0025, seed=8)
+    dfreq, dtimes, dZ = sim.make_drift_fleet(MESH_DRIFT_B)
+    fleet = sim.make_ragged_fleet(MESH_B, RG_SEED)
+    cases = {
+        "map": lambda **k: fit_spectra_batch(
+            freq, Zb, mode="optimize", max_iter=MESH_MAP_ITER,
+            random_seed=2, polish=False, **k),
+        "ridge": lambda **k: ridge_fit_spectra_batch(freq, Zr, **k),
+        "ridge_cv": lambda **k: ridge_fit_spectra_batch(
+            freq, Zb, cv_lambdas=MESH_CV_GRID, **k),
+        "drift": lambda **k: drift_fit_spectra_batch(
+            dfreq, dtimes, dZ, **dict(DRIFT_KW, max_iter=MESH_DRIFT_ITER,
+                                      **k)),
+        "ragged_map": lambda **k: fit_spectra_ragged(
+            fleet, mode="optimize", max_iter=MESH_MAP_ITER, **k)}
+    out = {}
+    for name, call in cases.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t0 = time.perf_counter()
+            r0 = call()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r1 = call(mesh=mesh)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        same = all(np.array_equal(getattr(r0, f), getattr(r1, f))
+                   for f in ("coef", "r_inf", "inductance", "z_scales"))
+        layout = r1.diagnostics["shard_layout"]
+        rec = {"meshless_s": t1 - t0, "mesh_s": t2 - t1,
+               "shard_layout": layout, "bitwise": same,
+               "finite": bool(np.isfinite(r1.coef).all())}
+        out[name] = rec
+        if not (same and rec["finite"] and len(layout) == 1
+                and layout[0][:2] == (0, 0)):
+            failed.append(f"mesh_small.{name}")
+    print("mesh small fits: " + json.dumps(out) + f" [{card}]")
+
+
+def store_fit(card, failed):
+    """(c) SHMCConfig(traj_store=True) on phase 12's Series-Parallel
+    posterior (the generic sampler's store-then-select trajectory, each
+    draw one CUDA graph replay) at a short budget, with phase 12's gates,
+    its one shard in the mesh's worker thread (ThreadedShards: its graphs
+    captured there). Returns its K2 launches."""
+    import torch
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    from bayes_drt_tpu_torch.parallel import batch
+    freq, dists, z_true, zb, tau, truth = sp_setup()
+    cfg = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS,
+                     eps_quantile=EPS_QUANTILE, traj_store=True)
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    threaded = ThreadedShards()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with threaded as mesh:
+        res = batch.fit_spectra_batch(
+            freq, zb[:SP_B_SAMPLE], distributions=dists, nonneg=True,
+            sigma_min=0.002, chains=CHAINS, warmup=STORE_BUDGET[0],
+            samples=STORE_BUDGET[1], ncp=True, sampler="shmc",
+            shmc_cfg=cfg, escalate=False, gamma_eval_tau=tau,
+            random_seed=3, timing=True, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    d = res.diagnostics
+    fig = sp_figures(res, freq, z_true, tau, truth)
+    div = float(np.median(d["divergence_rate"]))
+    gates = {"finite": fig["finite"], "z_resid": fig["z_resid_median"]
+             <= SP_GATE_Z, "divergence": div <= SP_GATE_SHMC_DIV,
+             "drt_rmse": fig["drt_rmse"] <= SP_GATE_DRT_RMSE,
+             "route": d["shmc_route"] == "generic-store",
+             "in_worker_thread": threaded.in_workers(),
+             "launches": launches == {"quad": 2, "traj": 0}}
+    print("traj_store series-parallel: " + json.dumps(dict(
+        B=SP_B_SAMPLE, budget=[CHAINS, *STORE_BUDGET], wall_s=wall,
+        phase_s=d["phase_s"], **fig, divergence_rate_median=div,
+        accept_prob_mean=float(np.mean(d["accept_prob"])),
+        draw_s_median=float(np.median(np.asarray(d["draw_s"]))),
+        capture_s=[float(x) for x in d["capture_s"]],
+        streaming_draw_s_median=KEEP["generic_sp"]["draw_s_median"],
+        gates={k: bool(v) for k, v in gates.items()})) + f" [{card}]")
+    failed += [f"traj_store.{k}" for k, v in gates.items() if not v]
+    return launches
+
+
+def fused_nuts(card, failed):
+    """(d) NUTSConfig(fused_draws=True), md8, on the main path's final
+    states of FUSED_B spectra (FUSED_B * CHAINS rows, the hand-written
+    density) without adaptation, against the flat form with the same
+    generator: fused_draws runs the flat form (the JAX package's fused
+    chain gives its draws), so the same trees, divergences and draws."""
+    import torch
+    from bayes_drt_tpu_torch.infer.nuts import NUTSConfig, sample_nuts
+    R = FUSED_B * CHAINS
+    vg, q, lp, g, eps, m_inv = nuts_rows(torch.float32, KEEP["state"], R)
+    trees = {}      # the flat form's graphs, captured once for both runs
+    runs = {}
+    for form in ("flat", "fused"):
+        cfg = NUTSConfig(max_depth=NUTS_DEPTH, fused_draws=form == "fused")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            runs[form] = sample_nuts(vg, q, 0, FUSED_NOADAPT, cfg,
+                                     generator=gen, metric=m_inv,
+                                     init_step_size=eps, graphs=trees)
+    (d1, i1), (d2, i2) = runs["flat"], runs["fused"]
+    gates = {"same_trees": bool(torch.equal(i1["n_leapfrog"],
+                                            i2["n_leapfrog"])),
+             "same_divergences": bool(torch.equal(i1["diverging"],
+                                                  i2["diverging"])),
+             "draws_bitwise": bool(torch.equal(d1, d2)),
+             "finite": bool(torch.isfinite(d2).all())}
+    print("fused_draws nuts md8: " + json.dumps({
+        "budget": [0, FUSED_NOADAPT], "rows": R,
+        "n_leapfrog_mean": float(i2["n_leapfrog"].float().mean()),
+        "gates": gates}) + f" [{card}]")
+    failed += [f"fused.{k}" for k, v in gates.items() if not v]
+
+
+def precision_ab(card, failed):
+    """(e) The reduced-precision A/B: phase 12's generic SHMC fit (the
+    same 256 Series-Parallel spectra, budget and seed) at
+    SHMCConfig(precision='high'), the posterior's products as tf32x3,
+    against phase 12's own run at 'highest': phase 12's gates, seconds a
+    draw and the probe bf16x3_grad_err (median, max), phase 12's gates
+    enforced on the opt-in arm (the 'fast' preset stays at 'highest':
+    tf32x3 took longer a draw). Returns its K2 launches."""
+    import torch
+    from bayes_drt_tpu_torch.infer.chees import SHMCConfig
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    from bayes_drt_tpu_torch.parallel import batch
+    freq, dists, z_true, zb, tau, truth = sp_setup()
+    cfg = SHMCConfig(n_steps=N_STEPS, warm_steps=N_STEPS,
+                     recompute_grad=True, eps_quantile=EPS_QUANTILE,
+                     precision="high")
+    drt_quad.launches = 0
+    traj_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = batch.fit_spectra_batch(
+            freq, zb[:SP_B_SAMPLE], distributions=dists, nonneg=True,
+            sigma_min=0.002, chains=CHAINS, warmup=WARMUP, samples=SAMPLES,
+            ncp=True, sampler="shmc", shmc_cfg=cfg, escalate=False,
+            gamma_eval_tau=tau, random_seed=3, timing=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+    d = res.diagnostics
+    fig = sp_figures(res, freq, z_true, tau, truth)
+    div = float(np.median(d["divergence_rate"]))
+    err = np.asarray(d.get("bf16x3_grad_err", [np.nan]))
+    high = {"drt_rmse": fig["drt_rmse"], "z_resid": fig["z_resid_median"],
+            "divergence_median": div, "wall_s": wall,
+            "draw_s_median": float(np.median(np.asarray(d["draw_s"]))),
+            "min_ess_median": float(np.median(d["min_ess"])),
+            "grad_err_median": float(np.median(err)),
+            "grad_err_max": float(np.max(err)), "precision": d["precision"]}
+    low = KEEP["generic_sp"]
+    highest = {"drt_rmse": low["drt_rmse"], "z_resid": low["z_resid_median"],
+               "divergence_median": low["divergence_rate_median"],
+               "wall_s": low["wall_s"], "draw_s_median": low["draw_s_median"],
+               "min_ess_median": low["min_ess_median"]}
+    ab_gates = {"finite": fig["finite"], "z_resid": fig["z_resid_median"]
+                <= SP_GATE_Z, "divergence": div <= SP_GATE_SHMC_DIV,
+                "drt_rmse": fig["drt_rmse"] <= SP_GATE_DRT_RMSE}
+    preset = batch.QUALITY_PRESETS["fast"]["shmc_cfg"].precision
+    gates = {"probe_finite": bool(np.isfinite(err).all()),
+             "precision_recorded": d["precision"] == "high",
+             "launches": launches == {"quad": 2, "traj": 0}, **ab_gates}
+    print("precision A/B (generic SHMC, series-parallel, B=256, 4 x "
+          f"({WARMUP}+{SAMPLES})): " + json.dumps({
+              "highest": highest, "high_tf32x3": high,
+              "high_passes_phase12_gates": {k: bool(v)
+                                            for k, v in ab_gates.items()},
+              "fast_preset_precision": preset,
+              "gates": {k: bool(v) for k, v in gates.items()}})
+          + f" [{card}]")
+    failed += [f"precision.{k}" for k, v in gates.items() if not v]
+    return launches
+
+
+def phase_mesh_arms(card):
+    """Phase 18: (a) the main path on a one-card mesh, bit for bit phase
+    4; (b) the small entry points on a one-card mesh; (c) traj_store;
+    (d) fused_draws; (e) the precision A/B. Returns the kernels' launches
+    on (a), (c) and (e)'s driven paths ((b)'s K2 launches are counted
+    too)."""
+    from bayes_drt_tpu_torch.infer.shmc_flat import traj_fused
+    from bayes_drt_tpu_torch.ops.quad import drt_quad
+    failed = []
+    seconds = {}
+    launches = {"quad": 0, "traj": 0}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        drt_quad.launches = 0
+        traj_fused.launches = 0
+        got = fn(card, failed)
+        if got is None:
+            got = {"quad": drt_quad.launches, "traj": traj_fused.launches}
+        for k in launches:
+            launches[k] += got[k]
+        seconds[name] = time.perf_counter() - t0
+
+    part("a_mesh_main", mesh_main_path)
+    part("b_mesh_small", mesh_small_fits)
+    part("c_traj_store", store_fit)
+    part("d_fused", fused_nuts)
+    part("e_precision", precision_ab)
+    print("mesh and arms phase: " + json.dumps({"seconds": seconds,
+                                          "launches": launches})
+          + f" [{card}]")
+    if failed:
+        raise AssertionError(f"mesh and arms phase failed: {failed}")
+    return launches
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -4274,6 +4695,25 @@ def main(argv):
         print(f"progcache after {name}: {json.dumps(progcache.stats())}")
         return out
 
+    print("depth cut to make room for phase 18 (the mesh, traj_store, "
+          "fused_draws and the precision A/B) and for the CLI's sample "
+          "command alone (no gate removed): phase 9's "
+          f"CPU rows 512 -> {PARITY_CPU_ROWS}; phase 13 (d)'s test-warmup "
+          f"NUTS md10 fit 2x(120+60) -> 2x({INV_NUTS_TEST_WARMUP}+"
+          f"{INV_NUTS_TEST_SAMPLES}) (its warmup and the rhat_max gate "
+          f"kept); phase 17 (b)'s warm draws "
+          f"60 -> {CH_WARM_SAMPLES}; phase 7's budget 4x(10+5) -> "
+          f"4x({DEFAULT_WARMUP}+{DEFAULT_SAMPLES}); phase 10's caps 2000 -> "
+          f"{MAP_DEFAULT_ITER} and 1500 -> {MAP_RIDGE_ITER}, its parity's "
+          f"200 -> {MAP_PARITY_ITER} iterations; phase 11's DDT A parity "
+          "81 -> 41 frequencies and NUTS parity 128 -> "
+          f"{SP_PARITY_NUTS_B * CHAINS} rows; phase 13's CV parity grid 25 "
+          f"-> {len(INV_CV_PARITY_GRID)} lambdas; phase 16's cold ragged "
+          f"fit 4x(100+150) -> 4x{RG_WARM_COLD}, its dense parity 256 -> "
+          f"{DENSE_PARITY_ROWS} rows; phase 10's and 13's float64 parity 8 "
+          f"-> {MAP_PARITY_B} spectra; phase 15's CLI directory 768 + 256 "
+          f"-> {CLI_GRIDS[0][0]} + {CLI_GRIDS[1][0]} spectra and its "
+          f"optimize command's cap 1500 -> {CLI_MAP_ITER}")
     t0 = time.perf_counter()
     logs = _build.build_all()
     seconds["1 build"] = round(time.perf_counter() - t0, 1)
@@ -4302,8 +4742,10 @@ def main(argv):
     sc = timed("15 sbc cli", phase_sbc_cli)
     rs = timed("16 resume", phase_resume)
     ch = timed("17 chees", phase_chees)
+    it = timed("18 mesh and arms", phase_mesh_arms)
     launches = {k: launches[k] + esc[k] + dflt[k] + mp[k] + sp[k] + gr[k]
-                + inv[k] + dr[k] + sc[k] + rs[k] + ch[k] for k in launches}
+                + inv[k] + dr[k] + sc[k] + rs[k] + ch[k] + it[k]
+                for k in launches}
     print(f"phase seconds: {json.dumps(seconds)} [{card}]")
     kernels = [
         dict(name="drt_quad", route="cuda",

@@ -64,11 +64,13 @@ def jax_nuts_stream(keys, dim, max_depth, draws):
     return out
 
 
-def jax_shmc_stream(keys, dim, chains, n_leaps):
+def jax_shmc_stream(keys, dim, chains, n_leaps, store=False):
     """The random numbers JAX's sample_shmc draws from each spectrum's key
     (chees.py:555,558-561 eps0 momenta per chain, :614-624 per draw), laid
     out as the port's spectrum-major rows: eps0 normals (B*C, D), then per
-    draw (z (B*C, D), u_sel (n_leap, B*C))."""
+    draw (z (B*C, D), u_sel (n_leap, B*C)); with ``store`` (traj_store,
+    chees.py:655-656) the Gumbel-max uniforms (n_leap + 1, B*C) on
+    [tiny, 1)."""
     z0, ks = [], []
     for key in keys:
         key, k_eps = jax.random.split(key)
@@ -84,8 +86,13 @@ def jax_shmc_stream(keys, dim, chains, n_leaps):
             ks[i] = key
             zs.append(np.asarray(jax.random.normal(k_mom, (chains, dim),
                                                    jnp.float64)))
-            us.append(np.asarray(jax.random.uniform(k_sel, (int(nl), chains),
-                                                    jnp.float64)))
+            if store:
+                us.append(np.asarray(jax.random.uniform(
+                    k_sel, (int(nl) + 1, chains), jnp.float64,
+                    minval=jnp.finfo(jnp.float64).tiny, maxval=1.0)))
+            else:
+                us.append(np.asarray(jax.random.uniform(
+                    k_sel, (int(nl), chains), jnp.float64)))
         out.append((torch.as_tensor(np.concatenate(zs)),
                     torch.as_tensor(np.concatenate(us, axis=1))))
     return out

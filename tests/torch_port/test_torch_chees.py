@@ -272,8 +272,9 @@ def test_fit_spectra_batch_chees_cold_and_warm():
 def test_fit_spectra_batch_mesh_and_chees_cfg_keywords():
     """fit_spectra_batch takes the JAX signature's mesh= and chees_cfg=
     keywords: mesh=None and a ChEESConfig are accepted in both packages
-    (here beside the default sampler, which ignores chees_cfg), any other
-    mesh raises naming item 12."""
+    (here beside the default sampler, which ignores chees_cfg), and a
+    two-device mesh (ported with the device mesh) runs ChEES in both,
+    with the same layout and shapes."""
     freq, Zb = _batch(2)
     kw = dict(chains=2, warmup=20, samples=10, max_tree_depth=4,
               escalate=False, mesh=None)
@@ -282,9 +283,19 @@ def test_fit_spectra_batch_mesh_and_chees_cfg_keywords():
     want = jax_fit(freq, Zb, chees_cfg=jax_chees.ChEESConfig(), **kw)
     assert got.coef.shape == want.coef.shape
     assert np.isfinite(got.coef).all()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        batch.fit_spectra_batch(freq, Zb, device="cpu",
-                                **dict(kw, mesh=object()))
+    from bayes_drt_tpu.parallel import make_mesh as jax_make_mesh
+    from bayes_drt_tpu_torch.parallel import make_mesh
+    ck = dict(chains=2, warmup=20, samples=10, sampler="chees", ncp=True)
+    got = batch.fit_spectra_batch(
+        freq, Zb, device="cpu", mesh=make_mesh(2, device="cpu"),
+        chees_cfg=chees.ChEESConfig(**SMALL_CFG), **ck)
+    want = jax_fit(freq, Zb, mesh=jax_make_mesh(2),
+                   chees_cfg=jax_chees.ChEESConfig(**SMALL_CFG), **ck)
+    assert got.diagnostics["shard_layout"] == want.diagnostics["shard_layout"]
+    for k, v in want.diagnostics.items():
+        if k != "state_cfg":
+            assert np.shape(got.diagnostics[k]) == np.shape(v), k
+    assert np.isfinite(got.coef).all()
 
 
 def test_fit_spectra_ragged_chees_cold_and_warm():

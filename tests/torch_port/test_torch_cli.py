@@ -146,9 +146,29 @@ def test_cli_exit_codes(tmp_path, data_dir):
     for grid in ("1,1e-3,5", "1e-3,1,1", "a,b,c"):
         assert _main(["fit", str(data_dir / "spec_0.csv"), "--out",
                       str(tmp_path), "--ridge-cv", "--cv-grid", grid]) == 2
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _main(["fit", str(data_dir / "spec_0.csv"), "--out", str(tmp_path),
-               "--mesh"])
+    # --mesh (ported with the device mesh) shards every bucket over
+    # all visible devices: the port's one CPU shard (its output the
+    # meshless command's bit for bit), the JAX package's eight virtual CPU
+    # devices; the same files and summary columns, every spectrum's ridge
+    # distribution within the ridge test's Rp bar in both
+    mesh_outs = {}
+    for name, run, extra in (("port", _main, ["--mesh"]),
+                             ("port_meshless", _main, []),
+                             ("jax", jax_main, ["--mesh"])):
+        mesh_outs[name] = tmp_path / f"mesh_{name}"
+        assert run(["fit", str(data_dir), "--pattern", "*.csv", "--out",
+                    str(mesh_outs[name]), "--mode", "ridge"] + extra) == 0
+    assert (sorted(p.name for p in mesh_outs["port"].iterdir())
+            == sorted(p.name for p in mesh_outs["jax"].iterdir()))
+    assert (list(pd.read_csv(mesh_outs["port"] / "summary.csv").columns)
+            == list(pd.read_csv(mesh_outs["jax"] / "summary.csv").columns))
+    _, _, rp = _ground_truth()
+    for i in range(4):
+        name = f"Gout_spec_{i}.csv"
+        got = pd.read_csv(mesh_outs["port"] / name)
+        assert got.equals(pd.read_csv(mesh_outs["port_meshless"] / name))
+        assert _rmse(mesh_outs["port"] / name) < 0.15 * rp
+        assert _rmse(mesh_outs["jax"] / name) < 0.15 * rp
     # --sampler chees runs in both CLIs: the same files and columns,
     # finite bands
     outs = {}

@@ -214,8 +214,18 @@ def test_fleet_validation_errors():
     with pytest.raises(ValueError, match="single distribution"):
         drift_fit_spectra_batch(freq, times, Zb, distributions={
             "a": {"kernel": "DRT"}, "b": {"kernel": "DRT"}}, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        drift_fit_spectra_batch(freq, times, Zb, mesh=object(), **kw)
+    # mesh= (ported with the device mesh): the padded fleet of 8 on 8
+    # virtual CPU shards in both packages, the same layout and shapes
+    # (the JAX mesh test's rank-1 inits shard too), finite cells
+    from bayes_drt_tpu.parallel import make_mesh as jax_make_mesh
+    from bayes_drt_tpu_torch.parallel import make_mesh
+    mkw = dict(drift_model="x1", n_restarts=1, max_iter=30)
+    got = drift_fit_spectra_batch(freq, times, Zb, **kw, **mkw,
+                                  mesh=make_mesh(8, device="cpu"))
+    want = jax_fleet(freq, times, Zb, mesh=jax_make_mesh(8), **mkw)
+    assert got.diagnostics["shard_layout"] == want.diagnostics["shard_layout"]
+    assert got.coef.shape == want.coef.shape
+    assert np.isfinite(got.coef).all()
     if not torch.cuda.is_available():
         # the entry points run on CUDA unless the caller names the CPU
         from bayes_drt_tpu_torch import ecm, peaks

@@ -207,14 +207,40 @@ def test_correlated_gaussian_moments():
 
 
 def test_unported_nuts_options_raise():
-    """fused_draws still raises, naming item 12; dense_mass and metric=
-    (ported with the metric family) run."""
-    vg, _, _ = _gaussian(3, 0)
+    """fused_draws (run as the flat form) replays the JAX package's
+    fused sampler from its keys, warmup with adaptation
+    included, and refuses dense mass adaptation with the JAX package's
+    ValueError; dense_mass and metric= (ported with the metric family)
+    run."""
+    vg, prec, _ = _gaussian(3, 0)
+    d, chains, warmup, samples, md = 3, 4, 40, 10, 5
+    prec_j = jnp.asarray(prec)
+    keys = jax.random.split(jax.random.PRNGKey(6), chains)
+    q0_np = np.random.default_rng(8).standard_normal((chains, d))
+    with pytest.warns(UserWarning, match="fused_draws"):
+        draws_j, info_j = jax.vmap(lambda qq, k: jax_nuts.sample_nuts(
+            lambda x: -0.5 * x @ (prec_j @ x), qq, k, warmup=warmup,
+            samples=samples, cfg=jax_nuts.NUTSConfig(
+                max_depth=md, fused_draws=True)))(jnp.asarray(q0_np), keys)
+    noise = jax_nuts_stream(keys, d, md, warmup + samples)
+    with pytest.warns(UserWarning, match="fused_draws"):
+        draws_f, info_f = nuts.sample_nuts(
+            vg, torch.as_tensor(q0_np), warmup, samples,
+            nuts.NUTSConfig(max_depth=md, fused_draws=True),
+            noise=lambda: iter(noise))
+    np.testing.assert_allclose(draws_f.numpy(),
+                               np.asarray(draws_j).transpose(1, 0, 2),
+                               rtol=1e-8, atol=1e-10)
+    for k in ("n_leapfrog", "diverging", "warmup_diverging"):
+        assert np.array_equal(info_f[k].numpy(), np.asarray(info_j[k]).T), k
+    for k in ("step_size", "inv_mass"):
+        np.testing.assert_allclose(info_f[k].numpy(), np.asarray(info_j[k]),
+                                   rtol=1e-8, err_msg=k)
     q0 = torch.zeros((2, 3), dtype=torch.float64)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        nuts.sample_nuts(vg, q0, 5, 5, nuts.NUTSConfig(fused_draws=True),
-                         generator=gen)
+    with pytest.raises(ValueError, match="dense mass adaptation"):
+        nuts.sample_nuts(vg, q0, 5, 5, nuts.NUTSConfig(
+            fused_draws=True, dense_mass=True), generator=gen)
     draws, info = nuts.sample_nuts(vg, q0, 5, 5,
                                    nuts.NUTSConfig(dense_mass=True),
                                    generator=gen)

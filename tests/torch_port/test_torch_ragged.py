@@ -265,8 +265,23 @@ def test_ragged_sample_outputs_match_jax(sampler):
 
 def test_ragged_raises():
     spectra = _fleet()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        batch.fit_spectra_ragged(spectra, device="cpu", mesh=object())
+    # mesh= (ported with the device mesh): the padded batch of 8 on 8
+    # virtual CPU shards in both packages, the same layout (one spectrum a
+    # device), shapes and a finite fit; a one-shard mesh is the meshless
+    # fit bit for bit
+    from bayes_drt_tpu.parallel import make_mesh as jax_make_mesh
+    from bayes_drt_tpu_torch.parallel import make_mesh
+    kw = dict(mode="optimize", n_restarts=1, max_iter=60, random_seed=0)
+    got = batch.fit_spectra_ragged(spectra, device="cpu",
+                                   mesh=make_mesh(8, device="cpu"), **kw)
+    want = jax_batch.fit_spectra_ragged(spectra, mesh=jax_make_mesh(8), **kw)
+    assert got.diagnostics["shard_layout"] == want.diagnostics["shard_layout"]
+    assert got.coef.shape == want.coef.shape
+    assert np.isfinite(got.coef).all()
+    one = batch.fit_spectra_ragged(spectra, device="cpu",
+                                   mesh=make_mesh(1, device="cpu"), **kw)
+    meshless = batch.fit_spectra_ragged(spectra, device="cpu", **kw)
+    assert np.array_equal(one.coef, meshless.coef)
     # sampler='chees' (item 12's first piece) runs, as in the JAX package:
     # the same diagnostics and shapes, a trajectory time per spectrum
     kw = dict(sampler="chees", chains=2, warmup=20, samples=10, ncp=True)

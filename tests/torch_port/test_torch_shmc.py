@@ -213,15 +213,36 @@ def test_sample_shmc_moments_correlated_gaussian():
 
 def test_shmc_config_fields_and_raises():
     """The JAX package's fields construct the port's config (the ragged
-    bench's call); the arms the port does not have raise."""
+    bench's call); traj_store and precision='high' run on a correlated
+    Gaussian in both packages with the same acceptance up to Monte-Carlo
+    error, an unknown precision raises; the arm the port does not have
+    (the TPU's RNG) raises."""
     cfg = chees.SHMCConfig(n_steps=32, warm_steps=32, leaf_unroll=2,
                            draw_unroll=2, recompute_grad=True,
                            eps_quantile=0.5, traj_block=128)
     cfg.validate()
     assert chees.SHMCConfig._fields == jax_chees.SHMCConfig._fields
     assert chees.SHMCConfig() == tuple(jax_chees.SHMCConfig())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        chees.SHMCConfig(traj_store=True).validate()
+    cov, prec = _gaussian_target()
+    d = cov.shape[0]
+    P, prec_j = torch.as_tensor(prec), jnp.asarray(prec)
+    q0 = np.random.default_rng(4).standard_normal((4, d))
+    kw = dict(n_steps=8, traj_store=True, precision="high")
+    chees.SHMCConfig(**kw).validate()
+    draws, info = chees.sample_shmc(
+        lambda q: (-0.5 * torch.sum(q * (q @ P), dim=1), -(q @ P)),
+        torch.as_tensor(q0), 100, 200, chees.SHMCConfig(**kw), 4,
+        generator=torch.Generator().manual_seed(2))
+    draws_j, info_j = jax_chees.sample_shmc(
+        lambda q: -0.5 * q @ prec_j @ q, jnp.asarray(q0),
+        jax.random.PRNGKey(2), warmup=100, samples=200,
+        cfg=jax_chees.SHMCConfig(**kw))
+    assert np.isfinite(draws.numpy()).all()
+    assert np.isfinite(np.asarray(draws_j)).all()
+    assert abs(float(info["accept_prob"].mean())
+               - float(np.asarray(info_j["accept_prob"]).mean())) < 0.1
+    with pytest.raises(ValueError, match="precision"):
+        chees.SHMCConfig(precision="bf16").validate()
     # the TPU's RngBitGenerator stream is dropped: the port draws Philox
     with pytest.raises(NotImplementedError,
                        match="dropped.*RngBitGenerator.*Philox"):
@@ -229,6 +250,9 @@ def test_shmc_config_fields_and_raises():
     fast = batch.QUALITY_PRESETS["fast"]["shmc_cfg"]
     assert fast.recompute_grad is True
     from bayes_drt_tpu.parallel.batch import QUALITY_PRESETS as JQ
+    # tf32x3 passed the A/B's gates on the card but took longer a draw
+    # than fp32: the preset stays at 'highest', the arm opt-in
+    assert fast.precision == "highest"
     assert fast._replace(precision="high") == tuple(JQ["fast"]["shmc_cfg"])
 
 
