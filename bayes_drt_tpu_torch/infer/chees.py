@@ -22,13 +22,13 @@ until every row is done (``ChEESLeaves``).
 from __future__ import annotations
 
 import math
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .._numerics import graph_capture
+from ..profiling import StageTimer, count, span
 from ..progcache import precise_matmuls
 
 class SHMCConfig(NamedTuple):
@@ -305,7 +305,8 @@ class GraphedTrajectory:
             dst.copy_(src)
         self._u.copy_(u_sel)
         self._j.fill_(int(j))
-        self._graph.replay()
+        with span("sample/draw/traj/replay"):
+            self._graph.replay()
         return tuple(t.clone() for t in self._out)
 
 
@@ -328,7 +329,7 @@ def generator_noise(generator, rows, dim, dtype, device, n_leaps):
 
 def run_shmc(value_and_grad, traj, q0, warmup: int, samples: int, cfg,
              chains: int, generator=None, noise=None, init_step_size=1.0,
-             metric=None, time_traj: bool = False, time_draws: bool = False):
+             metric=None, time_draws: bool = False):
     """The adaptation loop of both SHMC samplers over (B*chains, D) rows,
     as the JAX package's sample_shmc runs it per spectrum: per-row dual
     averaging; Welford pooled within chain, then averaged per spectrum
@@ -342,11 +343,13 @@ def run_shmc(value_and_grad, traj, q0, warmup: int, samples: int, cfg,
     (n_leap, R), or (n_leap + 1, R) with ``cfg.traj_store``) per draw; by
     default it draws from ``generator``.
     ``init_step_size`` (a float or per-spectrum (B,)) seeds the step-size
-    search, ``metric`` ((D,) or (B, D)) the inverse metric. ``time_traj``
-    brackets each trajectory with CUDA events (``info['traj_ms']``);
+    search, ``metric`` ((D,) or (B, D)) the inverse metric.
     ``time_draws`` records each draw's host-clock seconds, closed by a
-    device synchronize (``info['draw_s']``). Returns (draws (B, C, S, D),
-    info with a leading B axis)."""
+    device synchronize (``info['draw_s']``). In a recording scope each
+    draw is the span ``sample/draw``, inside that synchronize, from the
+    loop's top to its last store, with the trajectory's call as
+    ``sample/draw/traj``; the counter ``sample/draws`` counts them.
+    Returns (draws (B, C, S, D), info with a leading B axis)."""
     from .nuts import (_da_init, _da_update, _window_flags,
                        find_reasonable_step_size)
 
@@ -404,54 +407,44 @@ def run_shmc(value_and_grad, traj, q0, warmup: int, samples: int, cfg,
     div_s = torch.empty((samples, rt), dtype=torch.bool, device=dev)
     en_s = torch.empty((samples, rt), dtype=dtype, device=dev)
     warm_div = torch.empty((warmup, rt), dtype=torch.bool, device=dev)
-    events, draw_s = [], []
+    clock = StageTimer(dev, on=time_draws)
 
     for t in range(total):
-        if time_draws:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-        n_leap = int(nl_sched[t])
-        if t < warmup:
-            eps = torch.exp(da.log_eps)
-        else:
-            if eps_fixed is None:
-                pooled = _pool_eps(torch.exp(da.log_eps_bar).reshape(
-                    nb, chains), cfg)
-                eps_fixed = (pooled if pooled.ndim == 2 else
-                             pooled[:, None].expand(nb, chains)).reshape(rt)
-            eps = eps_fixed
-        eps = (eps * jit_mult[t]).contiguous()
-        z, u_sel = next(stream)
-        m_inv_rows = rows(m_inv).contiguous()
-        p0 = z / torch.sqrt(m_inv_rows)
-        if time_traj:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        q, logp, grad, kin, sacc, ever = traj(
-            n_leap, q, p0, grad, logp, eps, m_inv_rows, int(j_split[t]),
-            u_sel.contiguous())
-        if time_traj:
-            ev[1].record()
-            events.append(ev)
-        accept_prob = sacc / n_leap
-        if t >= warmup:
-            s = t - warmup
-            draws[s] = q
-            logp_s[s] = logp
-            acc_s[s] = accept_prob
-            div_s[s] = ever
-            en_s[s] = -logp + kin
-        else:
-            warm_div[t] = ever
-            da = _da_update(da, accept_prob, cfg)
-            wf, m_inv, da = _pooled_mass_step(wf, q, in_slow[t], win_end[t],
-                                              m_inv, da, chains)
-        if time_draws:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            draw_s.append(time.perf_counter() - t0)
+        with clock.stage("draw"), span("sample/draw"):
+            n_leap = int(nl_sched[t])
+            if t < warmup:
+                eps = torch.exp(da.log_eps)
+            else:
+                if eps_fixed is None:
+                    pooled = _pool_eps(torch.exp(da.log_eps_bar).reshape(
+                        nb, chains), cfg)
+                    eps_fixed = (pooled if pooled.ndim == 2 else
+                                 pooled[:, None].expand(nb, chains)
+                                 ).reshape(rt)
+                eps = eps_fixed
+            eps = (eps * jit_mult[t]).contiguous()
+            z, u_sel = next(stream)
+            m_inv_rows = rows(m_inv).contiguous()
+            p0 = z / torch.sqrt(m_inv_rows)
+            with span("sample/draw/traj"):
+                q, logp, grad, kin, sacc, ever = traj(
+                    n_leap, q, p0, grad, logp, eps, m_inv_rows,
+                    int(j_split[t]), u_sel.contiguous())
+            accept_prob = sacc / n_leap
+            if t >= warmup:
+                s = t - warmup
+                draws[s] = q
+                logp_s[s] = logp
+                acc_s[s] = accept_prob
+                div_s[s] = ever
+                en_s[s] = -logp + kin
+            else:
+                warm_div[t] = ever
+                da = _da_update(da, accept_prob, cfg)
+                wf, m_inv, da = _pooled_mass_step(wf, q, in_slow[t],
+                                                  win_end[t], m_inv, da,
+                                                  chains)
+    count("sample/draws", total)
 
     def per_spec(x):
         # (T, rt, ...) -> (B, C, T, ...)
@@ -468,11 +461,8 @@ def run_shmc(value_and_grad, traj, q0, warmup: int, samples: int, cfg,
         "inv_mass": m_inv,
         "warmup_diverging": per_spec(warm_div),
     }
-    if time_traj:
-        torch.cuda.synchronize(dev)
-        info["traj_ms"] = [a.elapsed_time(b) for a, b in events]
     if time_draws:
-        info["draw_s"] = draw_s
+        info["draw_s"] = clock.laps.get("draw", [])
     return per_spec(draws), info
 
 
@@ -501,7 +491,7 @@ def sample_shmc(value_and_grad, q0, warmup: int, samples: int,
     max_e = cfg.max_energy_error
     rc = cfg.recompute_grad
     graphs = {} if graphs is None else graphs
-    capture_s = []
+    clock = StageTimer(q0.device, on=time_draws)
     store = bool(cfg.traj_store)
     base = ("traj",) + tuple(q0.shape) + (str(q0.dtype), str(q0.device),
                                           float(max_e), bool(rc), store,
@@ -516,14 +506,13 @@ def sample_shmc(value_and_grad, q0, warmup: int, samples: int,
                                    recompute_grad=rc)
         key = base + (n_leap,)
         if key not in graphs:
-            t0 = time.perf_counter()
-            pool = next((g.pool_id for k, g in graphs.items()
-                         if k[:len(base)] == base), None)
-            graphs[key] = GraphedTrajectory(value_and_grad, n_leap, max_e,
-                                            rc, *args, pool=pool,
-                                            store=store)
-            torch.cuda.synchronize(q0.device)
-            capture_s.append(time.perf_counter() - t0)
+            with clock.stage("capture"):
+                pool = next((g.pool_id for k, g in graphs.items()
+                             if k[:len(base)] == base), None)
+                graphs[key] = GraphedTrajectory(value_and_grad, n_leap,
+                                                max_e, rc, *args, pool=pool,
+                                                store=store)
+                torch.cuda.synchronize(q0.device)
         return graphs[key](*args)
 
     with precise_matmuls(cfg.precision):
@@ -532,7 +521,7 @@ def sample_shmc(value_and_grad, q0, warmup: int, samples: int,
                                init_step_size=init_step_size, metric=metric,
                                time_draws=time_draws)
     if time_draws:
-        info["capture_s"] = capture_s
+        info["capture_s"] = clock.laps.get("capture", [])
     return draws, info
 
 
@@ -870,123 +859,118 @@ def sample_chees(value_and_grad, q0, warmup: int, samples: int,
                          ("warmup_n_leapfrog", torch.int32),
                          ("warmup_step_size", dtype))}
     warm_traj = torch.empty((warmup, nb), dtype=dtype, device=dev)
-    draw_s, capture_s, leaf_max, replays = [], [], [], []
+    leaf_max, replays = [], []
+    clock = StageTimer(dev, on=time_draws)
     graphs = {} if graphs is None else graphs
     g_key = ("chees-leaves", rt, dim, str(dtype), str(dev), n_leaf, n_pad,
              float(max_e))
     u_pad = torch.ones((rt, n_pad), dtype=dtype, device=dev)
 
     for t in range(total):
-        if time_draws:
+        with clock.stage("draw"):
+            is_warm = t < warmup
+            if is_warm:
+                eps = torch.exp(da.log_eps)
+            else:
+                if eps_samp is None:
+                    eps_samp = rows(per_spec(torch.exp(da.log_eps_bar)).min(
+                        dim=1).values)
+                eps = eps_samp
+            traj = torch.exp(log_traj)
+            n_steps = torch.clamp(torch.nan_to_num(
+                torch.ceil(halton[t] * rows(traj) / eps), nan=0.0),
+                cfg.min_steps, cfg.max_steps).to(torch.long)
+            z, uj, ub, uf = next(stream)
+            m_rows = rows(m_inv)
+            p0 = z / torch.sqrt(m_rows)
+            kin0 = 0.5 * torch.sum(p0 * p0 * m_rows, dim=1, keepdim=True)
+            lp0 = logp[:, None]
+            j_back = torch.minimum(torch.clamp(torch.floor(
+                rows(uj) * (n_steps + 1).to(dtype)).to(torch.long), min=0),
+                n_steps)
+            u_back = u_pad.clone()
+            u_back[:, :cfg.max_steps] = ub.T
+            u_fwd = u_pad.clone()
+            u_fwd[:, :cfg.max_steps] = uf.T
+            inp = LegInputs(q=q, p0=p0, grad=grad, lp0=lp0, H0=-lp0 + kin0,
+                            eps=eps[:, None], m_inv=m_rows,
+                            j_back=j_back[:, None], n_steps=n_steps[:, None],
+                            u_back=u_back, u_fwd=u_fwd)
+            st = leg_start(inp, kin0)
+            n_max = int(n_steps.max())
+            n_blocks = -(-n_max // n_leaf)
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-        is_warm = t < warmup
-        if is_warm:
-            eps = torch.exp(da.log_eps)
-        else:
-            if eps_samp is None:
-                eps_samp = rows(per_spec(torch.exp(da.log_eps_bar)).min(
-                    dim=1).values)
-            eps = eps_samp
-        traj = torch.exp(log_traj)
-        n_steps = torch.clamp(torch.nan_to_num(
-            torch.ceil(halton[t] * rows(traj) / eps), nan=0.0),
-            cfg.min_steps, cfg.max_steps).to(torch.long)
-        z, uj, ub, uf = next(stream)
-        m_rows = rows(m_inv)
-        p0 = z / torch.sqrt(m_rows)
-        kin0 = 0.5 * torch.sum(p0 * p0 * m_rows, dim=1, keepdim=True)
-        lp0 = logp[:, None]
-        j_back = torch.minimum(torch.clamp(torch.floor(
-            rows(uj) * (n_steps + 1).to(dtype)).to(torch.long), min=0),
-            n_steps)
-        u_back = u_pad.clone()
-        u_back[:, :cfg.max_steps] = ub.T
-        u_fwd = u_pad.clone()
-        u_fwd[:, :cfg.max_steps] = uf.T
-        inp = LegInputs(q=q, p0=p0, grad=grad, lp0=lp0, H0=-lp0 + kin0,
-                        eps=eps[:, None], m_inv=m_rows, j_back=j_back[:, None],
-                        n_steps=n_steps[:, None], u_back=u_back, u_fwd=u_fwd)
-        st = leg_start(inp, kin0)
-        n_max = int(n_steps.max())
-        n_blocks = -(-n_max // n_leaf)
-        if dev.type == "cuda":
-            leaves = graphs.get(g_key)
-            if leaves is None:
-                t_cap = time.perf_counter()
-                leaves = graphs[g_key] = ChEESLeaves(value_and_grad, n_leaf,
-                                                     max_e, st, inp)
-                torch.cuda.synchronize(dev)
-                capture_s.append(time.perf_counter() - t_cap)
-            leaves.load(st, inp)
-            for blk in range(n_blocks):
-                leaves.run(blk * n_leaf)
-            st = leaves.state()
-        else:
-            for blk in range(n_blocks):
-                st = chees_leaves(value_and_grad,
-                                  torch.tensor(blk * n_leaf, device=dev),
-                                  n_leaf, max_e, st, inp)
-        leaf_max.append(n_max)
-        replays.append(n_blocks)
-        # a row whose backward leg took all its leaves never flipped
-        end = inp.j_back >= n_blocks * n_leaf
-        q_b = torch.where(end, st.qq, st.q_b)
-        p_b = torch.where(end, st.pp, st.p_b)
-        q_f = torch.where(end, q, st.qq)
-        p_f = torch.where(end, p0, st.pp)
-        q_next, logp_next, grad_next = st.pq, st.plp[:, 0], st.pg
-        accept_prob = st.sacc[:, 0] / torch.clamp(n_steps, min=1).to(dtype)
+                leaves = graphs.get(g_key)
+                if leaves is None:
+                    with clock.stage("capture"):
+                        leaves = graphs[g_key] = ChEESLeaves(
+                            value_and_grad, n_leaf, max_e, st, inp)
+                        torch.cuda.synchronize(dev)
+                leaves.load(st, inp)
+                for blk in range(n_blocks):
+                    leaves.run(blk * n_leaf)
+                st = leaves.state()
+            else:
+                for blk in range(n_blocks):
+                    st = chees_leaves(value_and_grad,
+                                      torch.tensor(blk * n_leaf, device=dev),
+                                      n_leaf, max_e, st, inp)
+            leaf_max.append(n_max)
+            replays.append(n_blocks)
+            # a row whose backward leg took all its leaves never flipped
+            end = inp.j_back >= n_blocks * n_leaf
+            q_b = torch.where(end, st.qq, st.q_b)
+            p_b = torch.where(end, st.pp, st.p_b)
+            q_f = torch.where(end, q, st.qq)
+            p_f = torch.where(end, p0, st.pp)
+            q_next, logp_next, grad_next = st.pq, st.plp[:, 0], st.pg
+            accept_prob = st.sacc[:, 0] / torch.clamp(n_steps, min=1).to(dtype)
 
-        if is_warm:
-            # the ChEES gradient on log T, pooled over the spectrum's
-            # chains, through the longer leg's end (chees.py:296-327)
-            n_fwd = n_steps - j_back
-            use_fwd = (n_fwd >= j_back)[:, None]
-            q_e = per_spec(torch.where(use_fwd, q_f, q_b))
-            v_e = per_spec(torch.where(use_fwd, p_f, -p_b) * m_rows)
-            t_e = per_spec(torch.maximum(n_fwd, j_back).to(dtype) * eps)
-            acc = per_spec(accept_prob)
-            qs, qn = per_spec(q), per_spec(q_next)
-            m_cur = qs.mean(dim=1, keepdim=True)
-            wsum = torch.clamp(acc.sum(dim=1), min=1e-6)
-            m_prop = (torch.sum(acc[..., None] * qn, dim=1)
-                      / wsum[:, None])[:, None]
-            dsq = (torch.sum((qn - m_prop) ** 2, dim=2)
-                   - torch.sum((qs - m_cur) ** 2, dim=2))
-            dd = 2.0 * dsq * torch.sum((q_e - m_prop) * v_e, dim=2) * t_e
-            fin = torch.isfinite(dd)
-            w_c = torch.where(fin, acc, torch.zeros_like(acc))
-            dd = torch.where(fin, dd, torch.zeros_like(dd))
-            grad_c = (torch.sum(w_c * dd, dim=1)
-                      / torch.clamp(w_c.sum(dim=1), min=1e-6))
-            adam, step_t = _adam_update(adam, grad_c, cfg.adam_lr)
-            eps_mean = per_spec(eps).mean(dim=1)
-            log_traj = torch.minimum(
-                torch.maximum(log_traj + step_t, torch.log(eps_mean)),
-                torch.log(eps_mean * cfg.max_steps))
-            da = _da_update(da, accept_prob, cfg)
-            wf, m_inv, da = _pooled_mass_step(wf, q_next, in_slow[t],
-                                              win_end[t], m_inv, da, chains)
-            warm["warmup_diverging"][t] = st.div[:, 0]
-            warm["warmup_accept"][t] = accept_prob
-            warm["warmup_n_leapfrog"][t] = n_steps
-            warm["warmup_step_size"][t] = eps
-            warm_traj[t] = traj
-        else:
-            s = t - warmup
-            draws[s] = q_next
-            keep["logp"][s] = logp_next
-            keep["accept_prob"][s] = accept_prob
-            keep["diverging"][s] = st.div[:, 0]
-            keep["n_leapfrog"][s] = n_steps
-            keep["energy"][s] = -logp_next + st.pkin[:, 0]
-        q, logp, grad = q_next, logp_next, grad_next
-        if time_draws:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            draw_s.append(time.perf_counter() - t0)
+            if is_warm:
+                # the ChEES gradient on log T, pooled over the spectrum's
+                # chains, through the longer leg's end (chees.py:296-327)
+                n_fwd = n_steps - j_back
+                use_fwd = (n_fwd >= j_back)[:, None]
+                q_e = per_spec(torch.where(use_fwd, q_f, q_b))
+                v_e = per_spec(torch.where(use_fwd, p_f, -p_b) * m_rows)
+                t_e = per_spec(torch.maximum(n_fwd, j_back).to(dtype) * eps)
+                acc = per_spec(accept_prob)
+                qs, qn = per_spec(q), per_spec(q_next)
+                m_cur = qs.mean(dim=1, keepdim=True)
+                wsum = torch.clamp(acc.sum(dim=1), min=1e-6)
+                m_prop = (torch.sum(acc[..., None] * qn, dim=1)
+                          / wsum[:, None])[:, None]
+                dsq = (torch.sum((qn - m_prop) ** 2, dim=2)
+                       - torch.sum((qs - m_cur) ** 2, dim=2))
+                dd = 2.0 * dsq * torch.sum((q_e - m_prop) * v_e, dim=2) * t_e
+                fin = torch.isfinite(dd)
+                w_c = torch.where(fin, acc, torch.zeros_like(acc))
+                dd = torch.where(fin, dd, torch.zeros_like(dd))
+                grad_c = (torch.sum(w_c * dd, dim=1)
+                          / torch.clamp(w_c.sum(dim=1), min=1e-6))
+                adam, step_t = _adam_update(adam, grad_c, cfg.adam_lr)
+                eps_mean = per_spec(eps).mean(dim=1)
+                log_traj = torch.minimum(
+                    torch.maximum(log_traj + step_t, torch.log(eps_mean)),
+                    torch.log(eps_mean * cfg.max_steps))
+                da = _da_update(da, accept_prob, cfg)
+                wf, m_inv, da = _pooled_mass_step(wf, q_next, in_slow[t],
+                                                  win_end[t], m_inv, da,
+                                                  chains)
+                warm["warmup_diverging"][t] = st.div[:, 0]
+                warm["warmup_accept"][t] = accept_prob
+                warm["warmup_n_leapfrog"][t] = n_steps
+                warm["warmup_step_size"][t] = eps
+                warm_traj[t] = traj
+            else:
+                s = t - warmup
+                draws[s] = q_next
+                keep["logp"][s] = logp_next
+                keep["accept_prob"][s] = accept_prob
+                keep["diverging"][s] = st.div[:, 0]
+                keep["n_leapfrog"][s] = n_steps
+                keep["energy"][s] = -logp_next + st.pkin[:, 0]
+            q, logp, grad = q_next, logp_next, grad_next
 
     def by_spec(x):
         # (T, rt, ...) -> (B, C, T, ...)
@@ -998,6 +982,6 @@ def sample_chees(value_and_grad, q0, warmup: int, samples: int,
                 warmup_traj_time=warm_traj.T, leaf_max=leaf_max,
                 replays=replays)
     if time_draws:
-        info["draw_s"] = draw_s
-        info["capture_s"] = capture_s
+        info["draw_s"] = clock.laps.get("draw", [])
+        info["capture_s"] = clock.laps.get("capture", [])
     return by_spec(draws), info

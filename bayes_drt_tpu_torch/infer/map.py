@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .._numerics import graph_capture
+from ..profiling import count, span
 
 
 class MapResult(NamedTuple):
@@ -377,36 +378,45 @@ class _LBFGS:
             self.graphs[name] = g
 
     def run(self):
+        """Iterate to the stopping rule; in a recording scope each
+        iteration is the span ``lbfgs/iter`` and ``lbfgs/ls_steps``
+        counts the line-search steps (the first trial's and each
+        further one)."""
         s, g = self.s, self.graphs
         for k in range(self.max_iter):
             any_act, any_stale = s["flags"].tolist()
             if not any_act:
                 break
-            if any_stale:
-                # optax.value_and_grad_from_state: where the line search
-                # left no finite value, evaluate at the iterate
-                f0, g0 = self.vg(s["x"])
-                fin = torch.isfinite(s["value"])
-                s["value"].copy_(torch.where(fin, s["value"], f0))
-                s["grad"].copy_(torch.where(fin[:, None], s["grad"], g0))
-            s["slot"].fill_((k - 1) % self.m)
-            s["order"].copy_(self.orders[k % self.m])
-            if g is None or k == 0:
-                self.pre(s, first=k == 0)
-            else:
-                g["pre"].replay()
-            for step in range(1, self.max_ls):
-                if not bool(s["ls_run"]):
-                    break
-                last = step == self.max_ls - 1
-                if g is None or last:
-                    self.step(s, last=last)
+            with span("lbfgs/iter"):
+                if any_stale:
+                    # optax.value_and_grad_from_state: where the line
+                    # search left no finite value, evaluate at the iterate
+                    f0, g0 = self.vg(s["x"])
+                    fin = torch.isfinite(s["value"])
+                    s["value"].copy_(torch.where(fin, s["value"], f0))
+                    s["grad"].copy_(torch.where(fin[:, None], s["grad"],
+                                                g0))
+                s["slot"].fill_((k - 1) % self.m)
+                s["order"].copy_(self.orders[k % self.m])
+                if g is None or k == 0:
+                    self.pre(s, first=k == 0)
                 else:
-                    g["step"].replay()
-            if g is None:
-                self.post(s)
-            else:
-                g["post"].replay()
+                    g["pre"].replay()
+                steps = 1
+                for step in range(1, self.max_ls):
+                    if not bool(s["ls_run"]):
+                        break
+                    steps += 1
+                    last = step == self.max_ls - 1
+                    if g is None or last:
+                        self.step(s, last=last)
+                    else:
+                        g["step"].replay()
+                count("lbfgs/ls_steps", steps)
+                if g is None:
+                    self.post(s)
+                else:
+                    g["post"].replay()
         return MapResult(params=s["x"].clone(), value=s["value"].clone(),
                          grad_norm=s["gnorm"].clone(),
                          n_iter=s["n_iter"].clone(),
@@ -462,7 +472,12 @@ def newton_polish(value_and_grad: Callable, hessian: Callable, x0,
     floored at 1e-12) and refused otherwise (lam x 10). A row stops at
     ``max_iter``, at gradient infinity norm <= tol (floored at 50 eps) or
     once lam reaches 1e10; only running rows are evaluated. ``converged``
-    is the certificate: a finite value with gradient norm <= tol."""
+    is the certificate: a finite value with gradient norm <= tol. In a
+    recording scope an iteration's parts are the spans ``polish/check``
+    (which rows still run), ``polish/hessian`` (their Hessian and its
+    damping), ``polish/solve`` and ``polish/step`` (the trial point's
+    value and gradient, and the updates); ``polish/iters`` counts the
+    iterations and ``polish/rows`` the Hessian rows evaluated."""
     x = x0.clone()
     R = x.shape[0]
     tol = max(tol, 50.0 * torch.finfo(x.dtype).eps)
@@ -471,22 +486,32 @@ def newton_polish(value_and_grad: Callable, hessian: Callable, x0,
     lam = torch.full_like(val, 1e-3)
     it = torch.zeros(R, dtype=torch.int32, device=x.device)
     act = (it < max_iter) & (g.abs().amax(dim=1) > tol) & (lam < 1e10)
-    while bool(act.any()):
-        rows = torch.nonzero(act).flatten()
-        xr, vr, gr, lr = x[rows], val[rows], g[rows], lam[rows]
-        h = hessian(xr, rows)
-        diag = torch.clamp_min(torch.diagonal(h, dim1=1, dim2=2).abs(), 1.0)
-        h.diagonal(dim1=1, dim2=2).add_(lr[:, None] * diag)
-        x_new = xr - torch.linalg.solve(h, gr)
-        v_new, g_new = value_and_grad(x_new, rows)
-        ok = torch.isfinite(v_new) & (v_new <= vr)
-        x[rows] = torch.where(ok[:, None], x_new, xr)
-        val[rows] = torch.where(ok, v_new, vr)
-        g[rows] = torch.where(ok[:, None], g_new, gr)
-        lam[rows] = torch.where(ok, torch.clamp_min(lr / 3.0, 1e-12),
-                                lr * 10.0)
-        it[rows] += 1
-        act = (it < max_iter) & (g.abs().amax(dim=1) > tol) & (lam < 1e10)
+    while True:
+        with span("polish/check"):
+            if not bool(act.any()):
+                break
+            rows = torch.nonzero(act).flatten()
+        count("polish/iters")
+        count("polish/rows", rows.shape[0])
+        with span("polish/hessian"):
+            xr, vr, gr, lr = x[rows], val[rows], g[rows], lam[rows]
+            h = hessian(xr, rows)
+            diag = torch.clamp_min(torch.diagonal(h, dim1=1, dim2=2).abs(),
+                                   1.0)
+            h.diagonal(dim1=1, dim2=2).add_(lr[:, None] * diag)
+        with span("polish/solve"):
+            x_new = xr - torch.linalg.solve(h, gr)
+        with span("polish/step"):
+            v_new, g_new = value_and_grad(x_new, rows)
+            ok = torch.isfinite(v_new) & (v_new <= vr)
+            x[rows] = torch.where(ok[:, None], x_new, xr)
+            val[rows] = torch.where(ok, v_new, vr)
+            g[rows] = torch.where(ok[:, None], g_new, gr)
+            lam[rows] = torch.where(ok, torch.clamp_min(lr / 3.0, 1e-12),
+                                    lr * 10.0)
+            it[rows] += 1
+            act = ((it < max_iter) & (g.abs().amax(dim=1) > tol)
+                   & (lam < 1e10))
     gnorm = g.abs().amax(dim=1)
     return MapResult(params=x, value=val, grad_norm=gnorm, n_iter=it,
                      converged=torch.isfinite(val) & (gnorm <= tol))

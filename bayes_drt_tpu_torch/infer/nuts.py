@@ -27,7 +27,6 @@ generator.
 from __future__ import annotations
 
 import math
-import time
 import warnings
 from typing import NamedTuple
 
@@ -35,6 +34,7 @@ import numpy as np
 import torch
 
 from .._numerics import graph_capture
+from ..profiling import StageTimer
 
 
 class NUTSConfig(NamedTuple):
@@ -766,7 +766,7 @@ def sample_nuts(value_and_grad, q0, warmup: int = 200, samples: int = 200,
                           ("diverging", torch.bool),
                           ("n_leapfrog", torch.int32), ("energy", dtype))}
     warm_div = torch.empty((warmup, rows), dtype=torch.bool, device=dev)
-    draw_s, capture_s = [], []
+    clock = StageTimer(dev, on=time_draws)
     tree = None
     tree_key = ("tree", rows, dim, str(dtype), str(dev), cfg.max_depth,
                 float(cfg.max_energy_error), not cfg.tree_scan,
@@ -774,58 +774,48 @@ def sample_nuts(value_and_grad, q0, warmup: int = 200, samples: int = 200,
     if graphs is not None:
         tree = graphs.get(tree_key)
     for t in range(total):
-        if time_draws:
+        with clock.stage("draw"):
+            warm = t < warmup
+            eps = torch.exp(da.log_eps if warm else da.log_eps_bar)
+            nz = next(stream)
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-        warm = t < warmup
-        eps = torch.exp(da.log_eps if warm else da.log_eps_bar)
-        nz = next(stream)
-        if dev.type == "cuda":
-            if tree is None:
-                t_cap = time.perf_counter()
-                tree = GraphedTree(value_and_grad, q, logp, grad, nz, eps,
-                                   m_inv, cfg.max_depth,
-                                   cfg.max_energy_error,
-                                   early_stop=not cfg.tree_scan,
-                                   mass_chol=chol)
-                if graphs is not None:
-                    graphs[tree_key] = tree
-                if time_draws:
-                    torch.cuda.synchronize(dev)
-                    capture_s.append(time.perf_counter() - t_cap)
-            q, logp, grad, info = tree(q, logp, grad, nz, eps, m_inv, chol)
-        else:
-            q, logp, grad, info = nuts_transition_flat(
-                value_and_grad, q, logp, grad, nz, eps, m_inv,
-                max_depth=cfg.max_depth,
-                max_energy_error=cfg.max_energy_error,
-                tree_scan=cfg.tree_scan, mass_chol=chol)
-        if warm:
-            warm_div[t] = info.diverging
-            da = _da_update(da, info.accept_prob, cfg)
-            if cfg.adapt_mass:
-                if in_slow[t]:
-                    wf = _welford_add(wf, q)
-                if win_end[t]:
-                    m_inv, chol = _window_metric(wf, m_inv, chol)
-                    wf = _welford_init(rows, dim, dtype, dev, dense)
-                    da = _da_init(torch.exp(da.log_eps))
-        else:
-            s = t - warmup
-            draws[s] = q
-            keep["logp"][s] = logp
-            keep["accept_prob"][s] = info.accept_prob
-            keep["diverging"][s] = info.diverging
-            keep["n_leapfrog"][s] = info.n_leapfrog
-            keep["energy"][s] = info.energy
-        if time_draws:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            draw_s.append(time.perf_counter() - t0)
+                if tree is None:
+                    with clock.stage("capture"):
+                        tree = GraphedTree(value_and_grad, q, logp, grad, nz,
+                                           eps, m_inv, cfg.max_depth,
+                                           cfg.max_energy_error,
+                                           early_stop=not cfg.tree_scan,
+                                           mass_chol=chol)
+                    if graphs is not None:
+                        graphs[tree_key] = tree
+                q, logp, grad, info = tree(q, logp, grad, nz, eps, m_inv, chol)
+            else:
+                q, logp, grad, info = nuts_transition_flat(
+                    value_and_grad, q, logp, grad, nz, eps, m_inv,
+                    max_depth=cfg.max_depth,
+                    max_energy_error=cfg.max_energy_error,
+                    tree_scan=cfg.tree_scan, mass_chol=chol)
+            if warm:
+                warm_div[t] = info.diverging
+                da = _da_update(da, info.accept_prob, cfg)
+                if cfg.adapt_mass:
+                    if in_slow[t]:
+                        wf = _welford_add(wf, q)
+                    if win_end[t]:
+                        m_inv, chol = _window_metric(wf, m_inv, chol)
+                        wf = _welford_init(rows, dim, dtype, dev, dense)
+                        da = _da_init(torch.exp(da.log_eps))
+            else:
+                s = t - warmup
+                draws[s] = q
+                keep["logp"][s] = logp
+                keep["accept_prob"][s] = info.accept_prob
+                keep["diverging"][s] = info.diverging
+                keep["n_leapfrog"][s] = info.n_leapfrog
+                keep["energy"][s] = info.energy
     out = dict(keep, step_size=torch.exp(da.log_eps_bar), inv_mass=m_inv,
                warmup_diverging=warm_div)
     if time_draws:
-        out["draw_s"] = draw_s
-        out["capture_s"] = capture_s
+        out["draw_s"] = clock.laps.get("draw", [])
+        out["capture_s"] = clock.laps.get("capture", [])
     return draws, out

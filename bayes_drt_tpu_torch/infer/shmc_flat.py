@@ -442,8 +442,8 @@ traj_fused.launches = 0
 
 def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0,
                      warmup: int, samples: int, cfg, chains: int,
-                     generator=None, noise=None, time_traj: bool = False,
-                     metric=None, init_step_size=1.0):
+                     generator=None, noise=None, metric=None,
+                     init_step_size=1.0):
     """Synchronous static multinomial HMC over ONE flat chain axis.
 
     The batch (B spectra x ``chains``) runs as (B*chains, D) rows through
@@ -456,10 +456,10 @@ def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0,
     ``noise``, ``generator``, ``metric`` ((D,) or per spectrum (B, D))
     and ``init_step_size`` (a float or per spectrum (B,)) are run_shmc's:
     a resumed fit passes the metric and step size it carries, with
-    ``cfg.adapt_mass=False`` to hold the metric. ``time_traj`` brackets
-    every trajectory launch with CUDA events and returns the per-draw
-    device times (ms) under ``info['traj_ms']``. Returns (draws (B, C, S,
-    D), info dict with a leading B axis).
+    ``cfg.adapt_mass=False`` to hold the metric. In a recording scope
+    (``profiling``) each launch is run_shmc's ``sample/draw/traj`` span,
+    whose CUDA event pair gives its device seconds. Returns (draws (B, C,
+    S, D), info dict with a leading B axis).
     """
     max_e = cfg.max_energy_error
 
@@ -472,5 +472,5 @@ def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0,
                           eps, m_inv_rows, targets, j, u_sel)
 
     return run_shmc(vg, traj, q0, warmup, samples, cfg, chains,
-                    generator=generator, noise=noise, time_traj=time_traj,
-                    metric=metric, init_step_size=init_step_size)
+                    generator=generator, noise=noise, metric=metric,
+                    init_step_size=init_step_size)

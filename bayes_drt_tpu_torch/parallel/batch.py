@@ -42,7 +42,6 @@ whole batch drawn for it and sliced.
 from __future__ import annotations
 
 import math
-import time
 import warnings
 from typing import NamedTuple, Optional
 
@@ -73,6 +72,7 @@ from ..models.posterior import (MONITOR_SCALARS, constrain, flat_dim,
                                 ravel, unravel)
 from ..ops.matrices import (construct_A, construct_L, construct_M,
                             default_epsilon, get_tau_basis)
+from ..profiling import StageTimer, count, recorded, span
 from ..progcache import _map as _tree_map
 from ..progcache import bound, data_shapes, precise_matmuls
 from .mesh import Shard, check_precision, resolve_mesh_device, run_shards
@@ -81,19 +81,10 @@ from .mesh import Shard, check_precision, resolve_mesh_device, run_shards
 def _phase_clock(timing, dev):
     """(mark, phases): ``mark(name)`` records under ``phases[name]`` the
     host seconds since the previous mark (or the call), closed by a device
-    synchronize, when ``timing`` is on."""
-    phases = {}
-    clock = [time.perf_counter()]
-
-    def mark(name):
-        if timing:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            phases[name] = now - clock[0]
-            clock[0] = now
-
-    return mark, phases
+    synchronize, when ``timing`` is on; in a timed fit's recording scope
+    each phase is also a top-level span of the fit (``StageTimer``)."""
+    clock = StageTimer(dev, on=timing, phases=True)
+    return clock.mark, clock.stages
 
 
 def _pad_rows(arr, b):
@@ -195,7 +186,8 @@ def _make_summarize(cfg, chains, samples, monitor_thin: int = 0):
     def summarize(dat, draws, info, phi_mon, phi_eval):
         bc, _, _, d = draws.shape                     # (Bc, C, S, D)
         flat = draws.reshape(bc, chains * samples, d)
-        c = constrain(cfg, dat, unravel(cfg, flat))
+        with span("summary/constrain"):
+            c = constrain(cfg, dat, unravel(cfg, flat))
         xs = c["x_0"]                                 # (Bc, CS, K)
         lp = info["logp"]                             # (Bc, C, S)
         half = lp.shape[-1] // 2
@@ -209,10 +201,13 @@ def _make_summarize(cfg, chains, samples, monitor_thin: int = 0):
         inv_mass = info["inv_mass"]                   # (Bc, C, D), or
         diag_mass = (inv_mass if inv_mass.ndim == 3   # (Bc, C, D, D) dense
                      else torch.diagonal(inv_mass, dim1=-2, dim2=-1))
+        with span("summary/percentiles"):
+            coef_lo = _percentile(xs, 2.5, dim=1)
+            coef_hi = _percentile(xs, 97.5, dim=1)
         out = {
             "coef": xs.mean(dim=1),
-            "coef_lo": _percentile(xs, 2.5, dim=1),
-            "coef_hi": _percentile(xs, 97.5, dim=1),
+            "coef_lo": coef_lo,
+            "coef_hi": coef_hi,
             "r_inf": c["Rinf"].mean(dim=1),
             "induc": c["induc"].mean(dim=1),
             "divergence_rate": info["diverging"].to(lp.dtype).mean(
@@ -227,36 +222,42 @@ def _make_summarize(cfg, chains, samples, monitor_thin: int = 0):
             "state_inv_mass": inv_mass,
             "state_step_size": info["step_size"],
         }
-        gmon = (xs @ phi_mon.T).reshape(bc, chains, samples, -1)
-        ess_q = ess_jnp(torch.cat([lp[..., None], gmon], dim=-1))
+        with span("summary/ess"):
+            gmon = (xs @ phi_mon.T).reshape(bc, chains, samples, -1)
+            ess_q = ess_jnp(torch.cat([lp[..., None], gmon], dim=-1))
         out["ess_logp"] = ess_q[:, 0]
         out["min_ess"] = ess_q.min(dim=-1).values
-        out["rank_rhat_max"] = rhat_rank_jnp(draws, d_chunk=32).max(
-            dim=-1).values
-        out["ess_bulk_min"] = ess_bulk_jnp(draws, d_chunk=32).min(
-            dim=-1).values
+        with span("summary/rank"):
+            out["rank_rhat_max"] = rhat_rank_jnp(draws, d_chunk=32).max(
+                dim=-1).values
+            out["ess_bulk_min"] = ess_bulk_jnp(draws, d_chunk=32).min(
+                dim=-1).values
         # power iteration on the pooled draws, centered on the global mean
         # and scaled by the adapted metric
-        y = ((draws - flat.mean(dim=1)[:, None, None, :])
-             / torch.sqrt(torch.clamp(diag_mass, min=1e-30))[:, :, None, :])
-        yf = y.reshape(bc, chains * samples, d)
-        nrm = yf.shape[1] - 1
-        v = torch.full((bc, d, 1), 1.0 / math.sqrt(d), dtype=yf.dtype,
-                       device=yf.device)
-        for _ in range(24):
-            w = torch.bmm(yf.transpose(1, 2), torch.bmm(yf, v)) / nrm
-            lam = torch.linalg.norm(w, dim=(1, 2))
-            v = w / (lam + 1e-30)[:, None, None]
+        with span("summary/power_iter"):
+            y = ((draws - flat.mean(dim=1)[:, None, None, :])
+                 / torch.sqrt(torch.clamp(diag_mass, min=1e-30))[
+                     :, :, None, :])
+            yf = y.reshape(bc, chains * samples, d)
+            nrm = yf.shape[1] - 1
+            v = torch.full((bc, d, 1), 1.0 / math.sqrt(d), dtype=yf.dtype,
+                           device=yf.device)
+            for _ in range(24):
+                w = torch.bmm(yf.transpose(1, 2), torch.bmm(yf, v)) / nrm
+                lam = torch.linalg.norm(w, dim=(1, 2))
+                v = w / (lam + 1e-30)[:, None, None]
         out["metric_lambda_max"] = lam
         if phi_eval.shape[0] > 0:
             ge = xs @ phi_eval.T
             out["gamma_eval_mean"] = ge.mean(dim=1)
-            out["gamma_eval_lo"] = _percentile(ge, 2.5, dim=1)
-            out["gamma_eval_hi"] = _percentile(ge, 97.5, dim=1)
+            with span("summary/percentiles"):
+                out["gamma_eval_lo"] = _percentile(ge, 2.5, dim=1)
+                out["gamma_eval_hi"] = _percentile(ge, 97.5, dim=1)
         if not cfg.fitY:
-            preds = predict_target(cfg, dat, c)
-            out["z_hat_mean"] = preds.mean(dim=1)
-            out["z_hat_std"] = preds.std(dim=1, correction=0)
+            with span("summary/predict"):
+                preds = predict_target(cfg, dat, c)
+                out["z_hat_mean"] = preds.mean(dim=1)
+                out["z_hat_std"] = preds.std(dim=1, correction=0)
         if monitor_thin:
             td = draws[:, :, monitor_thin - 1::monitor_thin, :]
             cm = constrain(cfg, dat, unravel(cfg, td.reshape(bc, -1, d)))
@@ -833,6 +834,7 @@ def _shmc_route(flat, sh_cfg) -> str:
     return "generic-store" if sh_cfg.traj_store else "generic"
 
 
+@recorded
 def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
                       basis_freq=None, epsilon=None, nonneg: bool = False,
                       outliers: bool = False, chains: int = 4,
@@ -930,14 +932,29 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
     for ``sampler='shmc'`` and for single-distribution NUTS without
     ``init_from_ridge``, off for ChEES.
 
-    ``timing`` records host-clock spans closed by a device synchronize
+    ``timing`` records host-clock phases closed by a device synchronize
     (``diagnostics['phase_s']``: setup, ridge when seeded, then sample and
     summary, or lbfgs and polish, with the L-BFGS part of ``n_iter`` in
-    ``diagnostics['n_iter_lbfgs']``), the trajectory kernel's per-draw device
-    times (flat-chain SHMC, ``diagnostics['traj_ms']``), each NUTS or
-    generic SHMC draw's seconds (``diagnostics['draw_s']``), the generic
-    sampler's graph captures (``diagnostics['capture_s']``) and the
-    escalation refit's seconds (``diagnostics['refit_s']``).
+    ``diagnostics['n_iter_lbfgs']``), each NUTS, ChEES or generic SHMC
+    draw's seconds, closed by a synchronize (``diagnostics['draw_s']``),
+    the graph captures' (``diagnostics['capture_s']``) and the escalation
+    refit's host seconds (``diagnostics['refit_s']``), and records the
+    fit's spans and counters (``profiling``), which add no synchronize:
+    ``diagnostics['spans']``, a list of dicts (name, id, parent, fit,
+    shard, start_ns and end_ns on ``time.time_ns()``'s clock, device_s
+    from a CUDA event pair) under the root ``fit``: the phases above, then
+    ``sample/draw`` (each SHMC draw, synchronize excluded) with
+    ``sample/draw/traj`` (its trajectory: the K1 launch, or the generic
+    sampler's with ``sample/draw/traj/replay``, its graph replay),
+    ``summary/constrain``, ``summary/percentiles``, ``summary/ess``,
+    ``summary/rank``, ``summary/power_iter``, ``summary/predict``,
+    ``summary/to_host``, ``lbfgs/iter``, ``polish/hessian``,
+    ``polish/solve``, ``polish/step``, ``polish/check``, ``escalate`` with
+    ``escalate/gate`` and ``escalate/refit`` (the refit's own ``fit``
+    below it); ``diagnostics['counters']``: ``sample/draws``,
+    ``lbfgs/ls_steps``, ``polish/iters``, ``polish/rows`` (Hessian rows
+    evaluated) and ``escalate/rows``, summed over the shards and the
+    refit.
 
     ``monitor_thin`` > 0 (sample mode) stores every ``monitor_thin``-th
     draw of each chain's monitors under ``diagnostics['monitor_draws']``
@@ -1204,33 +1221,38 @@ def fit_spectra_batch(frequencies, Z_batch, mode: str = "sample",
 
     # ---- gate-triggered escalation: refit the under-mixed tail ----
     if escalate:
-        gate_kw = dict(n_draws=chains * samples)
-        gate_kw.update(escalate_gate or {})
-        esc_mask = escalation_mask(diagnostics, b_real, **gate_kw)
-        diagnostics["escalated"] = esc_mask
-        if esc_mask.any():
-            sub_z_scale = None
-            if z_scale is not None:
-                sub_z_scale = np.broadcast_to(
-                    np.asarray(z_scale, float), (b_real,))[esc_mask]
-            warnings.warn(
-                f"{int(esc_mask.sum())}/{b_real} spectra failed the mixing "
-                f"gate; refitting them with "
-                f"{esc_kw.get('sampler', 'nuts')} (escalate=False disables)")
-            t_refit = time.perf_counter()
-            sub = fit_spectra_batch(
-                frequencies, Z_batch[:b_real][esc_mask], mode="sample",
-                basis_freq=basis_freq, epsilon=epsilon, nonneg=nonneg,
-                outliers=outliers, chains=chains, warmup=warmup,
-                samples=samples, random_seed=random_seed + 1,
-                distributions=distributions, basis=basis,
-                gamma_eval_tau=gamma_eval_tau, monitor_thin=monitor_thin,
-                z_scale=sub_z_scale, sigma_min=sigma_min, dtype=dtype,
-                escalate=False,
-                timing=timing, device=dev, **esc_kw)
-            if timing:
-                diagnostics["refit_s"] = time.perf_counter() - t_refit
-            result = _splice_results(result, sub, esc_mask)
+        with span("escalate"):
+            gate_kw = dict(n_draws=chains * samples)
+            gate_kw.update(escalate_gate or {})
+            with span("escalate/gate"):
+                esc_mask = escalation_mask(diagnostics, b_real, **gate_kw)
+            diagnostics["escalated"] = esc_mask
+            count("escalate/rows", int(esc_mask.sum()))
+            if esc_mask.any():
+                sub_z_scale = None
+                if z_scale is not None:
+                    sub_z_scale = np.broadcast_to(
+                        np.asarray(z_scale, float), (b_real,))[esc_mask]
+                warnings.warn(
+                    f"{int(esc_mask.sum())}/{b_real} spectra failed the "
+                    f"mixing gate; refitting them with "
+                    f"{esc_kw.get('sampler', 'nuts')} (escalate=False "
+                    "disables)")
+                with span("escalate/refit") as refit:
+                    sub = fit_spectra_batch(
+                        frequencies, Z_batch[:b_real][esc_mask],
+                        mode="sample", basis_freq=basis_freq,
+                        epsilon=epsilon, nonneg=nonneg, outliers=outliers,
+                        chains=chains, warmup=warmup, samples=samples,
+                        random_seed=random_seed + 1,
+                        distributions=distributions, basis=basis,
+                        gamma_eval_tau=gamma_eval_tau,
+                        monitor_thin=monitor_thin, z_scale=sub_z_scale,
+                        sigma_min=sigma_min, dtype=dtype, escalate=False,
+                        timing=timing, device=dev, **esc_kw)
+                if timing:
+                    diagnostics["refit_s"] = refit.seconds
+                result = _splice_results(result, sub, esc_mask)
     return result
 
 
@@ -1245,7 +1267,7 @@ def _coef_scale(cfg, i, z_scales):
 
 # per-draw timing records of the samplers (and ChEES's per-draw largest
 # leapfrog count and graph replays), kept out of the summary
-_TIMING_KEYS = ("traj_ms", "draw_s", "capture_s", "leaf_max", "replays")
+_TIMING_KEYS = ("draw_s", "capture_s", "leaf_max", "replays")
 
 
 def _n_eval(gamma_eval_tau) -> int:
@@ -1297,8 +1319,7 @@ def _run_sampler(sampler, entry, q0, chains, warmup, samples, cfg, gen,
             spec, shared, tgt_rows = flat_args
             draws, info = sample_shmc_flat(
                 spec, shared, tgt_rows, q0, warmup, samples, cfg, chains,
-                generator=gen, time_traj=timing and q0.device.type == "cuda",
-                metric=metric, init_step_size=init_step_size)
+                generator=gen, metric=metric, init_step_size=init_step_size)
         else:
             draws, info = sample_shmc(entry.fn, q0, warmup, samples, cfg,
                                       chains, generator=gen,
@@ -1349,8 +1370,9 @@ def _summarize_blocks(cfg, data, draws, info, chains, samples, b_real,
         inf_b = {k: v[sl] for k, v in info.items() if k not in _TIMING_KEYS}
         blocks.append(summarize(group_data(data, sl), draws[sl], inf_b,
                                 phi_mon, phi_eval))
-    return {k: torch.cat([blk[k] for blk in blocks]).cpu().numpy()
-            for k in blocks[0]}
+    with span("summary/to_host"):
+        return {k: torch.cat([blk[k] for blk in blocks]).cpu().numpy()
+                for k in blocks[0]}
 
 
 def _sampled_result(cfg, out, z_scales, dists_norm, tau, eps, basis,
@@ -1612,6 +1634,7 @@ def _ragged_setup(spectra, mode, basis_freq, epsilon, nonneg, outliers,
     return cfg, data, targets, z_scales, dists_norm, first
 
 
+@recorded
 def fit_spectra_ragged(spectra, mode: str = "sample", basis_freq=None,
                        epsilon=None, nonneg: bool = False,
                        outliers: bool = False, chains: int = 4,
@@ -2323,6 +2346,7 @@ def drift_data(frequencies, times, A_re, A_im, L, targets, tau,
         t_max=t(times.max()), t_min=t(times.min()))
 
 
+@recorded
 def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
                             basis_freq=None, epsilon=None,
                             nonneg: bool = False, sigma_min: float = 0.002,
@@ -2359,8 +2383,10 @@ def drift_fit_spectra_batch(frequencies, times, Z_batch, drift_model="x1",
     ``['value']``/``['n_iter']`` each cell's optimizer state and
     ``['median_rel_resid']`` the median relative impedance residual of
     its fitted trajectory; with ``timing``, ``['phase_s']`` (setup /
-    ridge / lbfgs / result seconds, closed by a device synchronize) and
-    ``['n_iter_rows']`` every row's iterations. ``mesh``: the ridge seed
+    ridge / lbfgs / result seconds, closed by a device synchronize),
+    ``['n_iter_rows']`` every row's iterations and, as
+    ``fit_spectra_batch`` records them, ``['spans']`` and
+    ``['counters']``. ``mesh``: the ridge seed
     runs sharded, the starts are drawn for the whole batch, and every
     shard runs its cells' rows through L-BFGS on its device (its own A),
     with ``diagnostics['shard_layout']``."""

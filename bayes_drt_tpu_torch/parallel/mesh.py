@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import progcache
+from .. import profiling, progcache
 
 
 class Shard(NamedTuple):
@@ -161,21 +161,23 @@ def check_precision(mesh: Optional[DeviceMesh], precision: str) -> None:
             "precision='highest' or a one-device mesh")
 
 
-def _in_shard(fn, shard: Shard, n_threads: int):
+def _in_shard(fn, shard: Shard, n_threads: int, forked):
     # a new host thread starts from the default intra-op thread count
     # (OpenMP's is per thread): keep the caller's, or the virtual shards
     # of a CPU mesh oversubscribe the host's cores
     torch.set_num_threads(n_threads)
     dev_ctx = (torch.cuda.device(shard.device)
                if shard.device.type == "cuda" else nullcontext())
-    with dev_ctx, progcache.scope(shard.tag):
+    with dev_ctx, progcache.scope(shard.tag), profiling.adopt(
+            forked, shard.position):
         return fn(shard)
 
 
 def run_shards(fn, shards):
     """``fn(shard)`` for every shard in host threads, one worker per
     device (with the shard's device current, its progcache scope set and
-    the caller's intra-op thread count), the results in shard order: the
+    the caller's intra-op thread count, and its spans recorded under the
+    caller's open span as the shard's), the results in shard order: the
     shards of distinct devices run at once, those that share a device (a
     CPU mesh's virtual shards) one after another, as they would share its
     cores anyway. An exception in any shard propagates once every shard
@@ -183,9 +185,10 @@ def run_shards(fn, shards):
     if len(shards) == 1 and shards[0].tag is None:
         return [fn(shards[0])]
     n_threads = torch.get_num_threads()
+    forked = profiling.fork()
     workers = len({str(sh.device) for sh in shards})
     with ThreadPoolExecutor(max_workers=workers,
                             thread_name_prefix="mesh-shard") as pool:
-        futures = [pool.submit(_in_shard, fn, sh, n_threads)
+        futures = [pool.submit(_in_shard, fn, sh, n_threads, forked)
                    for sh in shards]
         return [f.result() for f in futures]

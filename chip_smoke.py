@@ -983,7 +983,7 @@ def phase_main(card):
     ess_bulk_p10 = float(np.percentile(d["ess_bulk_min"], 10))
     rhat_med = float(np.median(d["logp_rhat"]))
     div = float(np.mean(d["divergence_rate"]))
-    traj_ms = np.asarray(d["traj_ms"])
+    traj_ms = k1_ms(d)
     for name, arr in (("coef", res.coef), ("gamma_lo", res.gamma_lo),
                       ("gamma_hi", res.gamma_hi)):
         if arr.shape != (B, len(tau)) or not np.isfinite(arr).all():
@@ -1012,6 +1012,14 @@ def phase_main(card):
     KEEP["main"] = (freq, Zb, res, tau, gt, rp)
     KEEP["state"] = state
     return launches, state
+
+
+def k1_ms(d):
+    """Each K1 launch's device milliseconds in a timed fit: the CUDA event
+    pairs of its ``sample/draw/traj`` spans (the fit's own, fit 0; the
+    escalation refit runs NUTS)."""
+    return np.asarray([1e3 * s["device_s"] for s in d["spans"]
+                       if s["name"] == "sample/draw/traj" and s["fit"] == 0])
 
 
 def gamma_figures(res, tau, gt, rp):
@@ -3771,7 +3779,7 @@ def resume_checks(card, failed):
         "B": B, "budget": [CHAINS, WARM_MAIN_WARMUP, SAMPLES],
         "wall_s": wall,
         "phase_s": d["phase_s"], "spectra_per_min": B / (wall / 60.0),
-        "traj_ms_per_draw_median": float(np.median(d["traj_ms"])),
+        "traj_ms_per_draw_median": float(np.median(k1_ms(d))),
         "rmse_over_rp": rmse, "p90_over_rp": p90, "coverage": cov,
         "min_ess_median": ess_med, "logp_rhat_median": rhat_med,
         "divergence_rate": float(np.mean(d["divergence_rate"])),
@@ -4405,7 +4413,7 @@ def mesh_main_path(card, failed):
         d, d0 = res.diagnostics, res0.diagnostics
         flagged = int(d["escalated"].sum())
         want = {"quad": 2 + (4 if flagged else 0), "traj": WARMUP + SAMPLES}
-        skip = ("phase_s", "traj_ms", "draw_s", "capture_s", "refit_s",
+        skip = ("phase_s", "draw_s", "capture_s", "refit_s",
                 "state_cfg", "dist_geometry", "shard_layout")
         differ = [f for f in ("coef", "r_inf", "inductance", "gamma_lo",
                               "gamma_hi", "z_scales")

@@ -1,0 +1,8 @@
+"""Device seconds of the Newton polish's Hessians a MAP fit: the CUDA
+event pairs of its ``polish/hessian`` spans (``spans.device_s_mean``)."""
+
+from portbench.spans import device_s_mean
+
+
+def read(ctx):
+    return device_s_mean(ctx, "optimize", "polish/hessian")
